@@ -1,16 +1,16 @@
 // tpurt native runtime: fast OBJ loading + binned-SAH CPU BVH builder.
 //
-// TPU-native counterpart of the reference's native layer: the reference does
+// Counterpart of the reference's native layer: the reference does
 // all of this in C++ too (tiny_obj_loader parsing + BVHBuilder::build's
 // recursive SAH split and depth-first flatten with skip links
 // [Source/BVHBuilder.cpp, RECALL — written from behavior, not copied]).
-// Here the hot render path is JAX/Pallas on the TPU; this library covers the
+// Here the hot render path is JAX on the GPU; this library covers the
 // host-side runtime where native code actually pays off:
 //   * OBJ parsing (Python parsing is ~50x slower on Sponza-sized files)
 //   * the CPU golden-oracle BVH used by the test pyramid
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 in this image).
 //
-// Build: make -C native   (produces libtpurt_native.so)
+// Build: make -C native   (produces libhost_native.so)
 
 #include <algorithm>
 #include <cctype>

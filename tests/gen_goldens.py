@@ -1,5 +1,5 @@
 """Regenerate the golden images (run manually on CPU after INTENDED visual
-changes; never on TPU — goldens are CPU-rendered and the suite forces CPU):
+changes; goldens are CPU-rendered and the suite forces CPU):
 
     env JAX_PLATFORMS=cpu python tests/gen_goldens.py
 """
@@ -29,15 +29,16 @@ def golden_cases():
                               teapot_scene)
     from tpurt.types import Light, RenderConfig
 
-    def teapot(use_pallas=False, fused=False):
+    def teapot(bvh_width=2):
+        """bvh_width 2: binary XLA walk; 8: the 8-wide accel's XLA walk
+        (the CUDA kernel's plain twin) — both land on the same golden."""
         mesh = teapot_scene(1500)
         r = Renderer(mesh, default_camera_for(mesh),
                      Light.directional((0.45, 0.8, 0.3)),
-                     RenderConfig(width=128, height=96,
-                                  use_pallas=use_pallas,
-                                  gbuffer="ray" if fused else "auto",
-                                  fused_shadow=fused,
-                                  leaf_size=8 if use_pallas else 4, seed=0))
+                     RenderConfig(width=128, height=96, use_kernel=False,
+                                  bvh_width=bvh_width,
+                                  leaf_size=8 if bvh_width == 8 else 4,
+                                  seed=0))
         return np.asarray(r.render_frame()["image"])
 
     def sponza():
@@ -46,7 +47,7 @@ def golden_cases():
         mesh = sponza_scene(30_000)
         r = Renderer(mesh, sponza_interior_camera(),
                      Light.directional((0.25, 0.9, 0.2)),
-                     RenderConfig(width=160, height=90, use_pallas=False,
+                     RenderConfig(width=160, height=90, use_kernel=False, bvh_width=2,
                                   leaf_size=4, seed=0))
         return np.asarray(r.render_frame()["image"])
 
@@ -55,7 +56,7 @@ def golden_cases():
         mesh = teapot_scene(1500)
         r = Renderer(mesh, default_camera_for(mesh),
                      Light.sun((0.45, 0.8, 0.3), angular_radius_deg=4.0),
-                     RenderConfig(width=128, height=96, use_pallas=False,
+                     RenderConfig(width=128, height=96, use_kernel=False, bvh_width=2,
                                   leaf_size=4, spp=4, seed=0))
         return np.asarray(r.render_frame()["image"])
 
@@ -69,7 +70,7 @@ def golden_cases():
                               + np.float32([2.5, 3.0, -1.5]),
                               color=(0.4, 0.5, 1.0), intensity=0.8)]
         r = Renderer(mesh, cam, lights,
-                     RenderConfig(width=128, height=96, use_pallas=False,
+                     RenderConfig(width=128, height=96, use_kernel=False, bvh_width=2,
                                   leaf_size=4, seed=0))
         return np.asarray(r.render_frame()["image"])
 
@@ -79,7 +80,7 @@ def golden_cases():
         mesh = teapot_scene(1500)
         r = Renderer(mesh, default_camera_for(mesh),
                      Light.directional((0.45, 0.8, 0.3)),
-                     RenderConfig(width=128, height=96, use_pallas=False,
+                     RenderConfig(width=128, height=96, use_kernel=False, bvh_width=2,
                                   leaf_size=4, seed=0),
                      mode="refit")
         out = r.render_frame()

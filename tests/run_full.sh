@@ -1,10 +1,8 @@
 #!/usr/bin/env bash
-# Full-suite runner (VERDICT r3 missing #3): the fast tier runs in one
-# process; the slow tier runs PER-FILE in fresh subprocesses so one
-# crashed interpreter (the r3 SIGSEGV was inside JAX's persistent-cache
-# executable write, 40 tests deep) can neither take down the rest of the
-# suite nor hide which file failed. Exit status is non-zero if any tier
-# fails. Usage: bash tests/run_full.sh
+# Full-suite runner: the fast tier runs in one process; the slow tier runs
+# PER-FILE in fresh subprocesses so one crashed interpreter can neither
+# take down the rest of the suite nor hide which file failed. Exit status
+# is non-zero if any tier fails. Usage: bash tests/run_full.sh
 set -u
 cd "$(dirname "$0")/.."
 fails=0

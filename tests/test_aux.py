@@ -14,6 +14,8 @@ from tpurt.bvh.lbvh import build_lbvh
 from tpurt.checkpoint import (load_accumulation, load_bvh, save_accumulation,
                               save_bvh, scene_key)
 from tpurt.scenes import random_soup, teapot_scene
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 from tpurt.utils.metrics import FrameStats, Timer, mrays_per_s
 
 
@@ -58,13 +60,12 @@ def test_metrics_timer_and_hud():
 @pytest.mark.slow
 def test_cli_renders_png(tmp_path):
     out = os.path.join(tmp_path, "cli.png")
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               TPURT_FORCE_CPU="1")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-m", "tpurt.cli", "--scene", "soup200",
-         "--width", "64", "--height", "48", "--no-pallas", "--out", out,
+         "--width", "64", "--height", "48", "--no-kernel", "--out", out,
          "--stats-json"],
-        capture_output=True, text=True, cwd="/root/repo", env=env,
+        capture_output=True, text=True, cwd=REPO, env=env,
         timeout=600)
     assert r.returncode == 0, r.stderr[-2000:]
     stats = json.loads(r.stdout.strip().splitlines()[-1])
@@ -85,7 +86,7 @@ def test_renderer_checkpoint_resume(tmp_path):
     mesh = teapot_scene(600)
     cam = default_camera_for(mesh)
     sun = Light.sun((0.45, 0.8, 0.3), angular_radius_deg=6.0)
-    cfg = RenderConfig(width=24, height=16, spp=2, use_pallas=False,
+    cfg = RenderConfig(width=24, height=16, spp=2, use_kernel=False,
                        accumulate=True, seed=3)
     a = Renderer(mesh, cam, sun, cfg)
     for _ in range(2):
@@ -108,8 +109,8 @@ def test_cli_flag_overrides_preset(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "tpurt.cli", "--scene", "soup200",
          "--preset", "config1", "--width", "40", "--height", "30",
-         "--no-pallas", "--out", out, "--stats-json"],
-        capture_output=True, text=True, cwd="/root/repo", env=env,
+         "--no-kernel", "--out", out, "--stats-json"],
+        capture_output=True, text=True, cwd=REPO, env=env,
         timeout=600)
     assert r.returncode == 0, r.stderr[-2000:]
     stats = json.loads(r.stdout.strip().splitlines()[-1])

@@ -4,7 +4,7 @@ polygons, conservative covering under deformation, and wide assembly.
 The core property: spatial-split leaf boxes are (triangle ∩ leaf box); a
 refit evaluates those polygons at the DEFORMED corners, so the refit tree
 must stay exact for occlusion on the deformed geometry while keeping
-boxes no looser than the full-triangle union. CPU, interpret kernels."""
+boxes no looser than the full-triangle union. CPU, XLA wide walk."""
 
 import dataclasses
 
@@ -19,8 +19,16 @@ from tpurt.bvh.clip_refit import (ClipRefitPlan, clip_slots_bary,
 from tpurt.bvh.reference import brute_force_any
 from tpurt.bvh.sah import build_sah_lbvh
 from tpurt.bvh.wide import build_wide, count_wide, round_up_bucket
-from tpurt.kernels.traverse import trace_any_pallas
+from tpurt.bvh.traverse import traverse_wide
 from tpurt.scenes import deform, random_soup, teapot_scene
+
+
+def trace_any_wide(wide, o, d, t_max):
+    """Occlusion from the XLA wide walk (the CUDA kernel's plain twin)."""
+    _, sidx, errors = traverse_wide(wide, o, d, t_max=t_max, any_hit=True)
+    assert int(errors) == 0
+    return sidx >= 0
+
 
 
 @pytest.fixture(scope="module")
@@ -83,8 +91,8 @@ def test_refit_identity_occlusion_matches_static(sbvh_scene):
                               sah.tri_e2)
     o, d = _rays_for(mesh)
     tm = jnp.full(o.shape[0], 3.4e38)
-    occ_s = trace_any_pallas(static, o, d, tm, interpret=True)
-    occ_r = trace_any_pallas(wide, o, d, tm, interpret=True)
+    occ_s = trace_any_wide(static, o, d, tm)
+    occ_r = trace_any_wide(wide, o, d, tm)
     np.testing.assert_array_equal(np.asarray(occ_s), np.asarray(occ_r))
 
 
@@ -97,8 +105,7 @@ def test_refit_deformed_is_exact_for_occlusion(sbvh_scene):
                               vertices=jnp.asarray(v2))
     mesh2 = dataclasses.replace(mesh, vertices=v2)
     o, d = _rays_for(mesh2, n=512, seed=17)
-    occ = trace_any_pallas(wide, o, d, jnp.full(o.shape[0], 3.4e38),
-                           interpret=True)
+    occ = trace_any_wide(wide, o, d, jnp.full(o.shape[0], 3.4e38))
     want = brute_force_any(mesh2, np.asarray(o), np.asarray(d))
     np.testing.assert_array_equal(np.asarray(occ), want)
 
@@ -175,8 +182,7 @@ def test_device_precompute_occlusion_exact(sbvh_scene):
                               vertices=jnp.asarray(v2))
     mesh2 = dataclasses.replace(mesh, vertices=v2)
     o, d = _rays_for(mesh2, n=512, seed=23)
-    occ = trace_any_pallas(wide, o, d, jnp.full(o.shape[0], 3.4e38),
-                           interpret=True)
+    occ = trace_any_wide(wide, o, d, jnp.full(o.shape[0], 3.4e38))
     want = brute_force_any(mesh2, np.asarray(o), np.asarray(d))
     np.testing.assert_array_equal(np.asarray(occ), want)
 

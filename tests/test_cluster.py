@@ -129,24 +129,26 @@ def test_cache_roundtrip(tmp_path, scene):
 
 
 @pytest.mark.slow
-def test_wide_parity_interpret(scene):
-    """Clustered tree through the production wide collapse + Pallas
-    kernels (interpret mode): same hits as the portable walk."""
+def test_wide_parity(scene):
+    """Clustered tree through the production wide collapse + the XLA
+    wide walk: same hits as the binary walk."""
+    from tpurt.bvh.traverse import traverse_wide
     from tpurt.bvh.wide import build_wide
-    from tpurt.kernels.traverse import trace_any_pallas, trace_closest_pallas
     mesh, _, cl = scene
     w = build_wide(cl)
     cam = default_camera_for(mesh)
     o, d = generate_rays(cam, 32, 32)
     tb, _ = traverse(cl, o, d)
-    tw, _, _ = trace_closest_pallas(w, o, d, return_sorted=True)
+    tw, _, _ = traverse_wide(w, o, d)
     np.testing.assert_allclose(np.nan_to_num(np.asarray(tb), posinf=0.0),
                                np.nan_to_num(np.asarray(tw), posinf=0.0),
                                rtol=1e-4, atol=1e-4)
     occ_b, _ = traverse(cl, o, d, any_hit=True)
-    occ_w = trace_any_pallas(w, o, d, jnp.full(o.shape[:-1], 3.0e38))
+    _, occ_w, _ = traverse_wide(w, o, d, t_max=jnp.full(o.shape[:-1],
+                                                         3.0e38),
+                                any_hit=True)
     np.testing.assert_array_equal(np.asarray(occ_b) < np.inf,
-                                  np.asarray(occ_w))
+                                  np.asarray(occ_w) >= 0)
 
 
 @pytest.mark.slow
@@ -154,19 +156,18 @@ def test_rebuild_fused_clustered(scene):
     """The fused rebuild program (deferred boxes + fixed collapse) with
     split_blocks produces an accel tracing identically to the full-box
     clustered build."""
+    from tpurt.bvh.traverse import traverse_wide
     from tpurt.bvh.wide import count_wide, round_up_bucket, widen_lbvh
-    from tpurt.kernels.traverse import trace_closest_pallas
     mesh, _, cl = scene
     v = jnp.asarray(mesh.vertices)
     i = jnp.asarray(mesh.indices)
-    b2, dep = build_lbvh(v, i, leaf_size=LEAF, split_blocks=M,
-                         boxes="defer", want_depth=True)
+    b2 = build_lbvh(v, i, leaf_size=LEAF, split_blocks=M, boxes="defer")
     nw = round_up_bucket(max(count_wide(cl, mode="fixed"), 1))
-    w2 = widen_lbvh(b2, nw_pad=nw, mode="fixed", depths=dep)
+    w2 = widen_lbvh(b2, nw_pad=nw, mode="fixed")
     cam = default_camera_for(mesh)
     o, d = generate_rays(cam, 32, 32)
     tb, _ = traverse(cl, o, d)
-    tw, _, _ = trace_closest_pallas(w2, o, d, return_sorted=True)
+    tw, _, _ = traverse_wide(w2, o, d)
     np.testing.assert_allclose(np.nan_to_num(np.asarray(tb), posinf=0.0),
                                np.nan_to_num(np.asarray(tw), posinf=0.0),
                                rtol=1e-4, atol=1e-4)

@@ -1,19 +1,15 @@
-"""Area-greedy collapse kernel (kernels/build.collapse_area_pallas +
-wide.widen_area_kernel) vs the XLA area widen (wide.frontiers_area +
-64-sweep reachability): same greedy rule, so the wide-node SET and child
-structure must match up to id renumbering — traces must agree exactly.
-This is the per-frame path that makes the measured-best collapse (probe
-r4f: shadow 22.7 vs 32.8 pops/packet on Morton trees) affordable in the
-config-2 rebuild."""
+"""Area-greedy 8-wide collapse (wide.frontiers_area + reachability), the
+frontier rebuild mode can take every frame (RenderConfig.rebuild_collapse):
+traces through it must match the binary walk and brute force, and its rows
+must form a valid tree."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from tpurt.bvh.lbvh import build_lbvh
-from tpurt.bvh.wide import (EMPTY, count_wide, round_up_bucket,
-                            widen_area_kernel, widen_lbvh)
-from tpurt.kernels.traverse import trace_any_pallas, trace_closest_pallas
+from tpurt.bvh.traverse import traverse, traverse_wide
+from tpurt.bvh.wide import count_wide, round_up_bucket, widen_lbvh
 from tpurt.scenes import random_soup
 
 
@@ -26,84 +22,71 @@ def _rays(rng, n, extent=8.0):
 
 @pytest.mark.parametrize(
     "nt,leaf,seed",
-    # All interpret-mode comparisons vs the 64-sweep XLA area widen run
-    # in the slow tier (round-5 re-tier: 20-25 s each on the 1-CPU box);
-    # the fast signal keeps the structural invariants + the E2E
-    # brute-force trace guard below.
     [pytest.param(250, 2, 5, marks=pytest.mark.slow),
      pytest.param(500, 4, 0, marks=pytest.mark.slow),
      pytest.param(800, 8, 3, marks=pytest.mark.slow)])
 def test_kernel_collapse_matches_xla_area_widen(nt, leaf, seed):
+    """The area collapse traces exactly like the binary tree it came from
+    (closest t and ids, and occlusion)."""
     mesh = random_soup(nt, seed=seed)
-    v = jnp.asarray(mesh.vertices)
-    i = jnp.asarray(mesh.indices)
-    full = build_lbvh(v, i, leaf_size=leaf)
-    nw = count_wide(full, mode="area")
-    nw_pad = round_up_bucket(max(nw, 1), 64)
-    ref_acc = widen_lbvh(full, nw_pad=nw_pad, mode="area")
-
-    deferred = build_lbvh(v, i, leaf_size=leaf, boxes="defer")
-    acc, count = widen_area_kernel(deferred, nw_pad)
-    assert int(count) == nw, (int(count), nw)
-
+    full = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices),
+                      leaf_size=leaf)
+    nw_pad = round_up_bucket(max(count_wide(full, mode="area"), 1), 64)
+    acc = widen_lbvh(full, nw_pad=nw_pad, mode="area")
     o, d = _rays(np.random.default_rng(seed), 320)
-    t0, i0 = trace_closest_pallas(ref_acc, o, d, interpret=True)
-    t1, i1 = trace_closest_pallas(acc, o, d, interpret=True)
+    t0, i0 = traverse(full, o, d)
+    t1, s1, err = traverse_wide(acc, o, d)
+    assert int(err) == 0
+    i1 = jnp.where(s1 >= 0, acc.tri_id[jnp.maximum(s1, 0)], -1)
     np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
     np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
     tm = jnp.full((320,), 25.0, jnp.float32)
-    h0 = trace_any_pallas(ref_acc, o, d, tm, interpret=True)
-    h1 = trace_any_pallas(acc, o, d, tm, interpret=True)
-    np.testing.assert_array_equal(np.asarray(h0), np.asarray(h1))
+    _, h0 = traverse(full, o, d, t_max=tm, any_hit=True)
+    _, h1, _ = traverse_wide(acc, o, d, t_max=tm, any_hit=True)
+    np.testing.assert_array_equal(np.asarray(h0) >= 0, np.asarray(h1) >= 0)
 
 
 def test_rebuild_fused_area_collapse_traces_correctly():
     """Config-2 plumbing: _rebuild_fused(collapse='area') — the full
-    per-frame program with the collapse kernel inside — yields an accel
-    whose closest hits agree with brute force."""
+    per-frame program (clustered build + area collapse + shade table) —
+    yields an accel whose closest hits agree with brute force."""
     from tpurt.app import _rebuild_fused
     from tpurt.bvh.reference import brute_force_closest
-    from tpurt.scenes import random_soup as _rs
 
-    mesh = _rs(250, seed=13)
+    mesh = random_soup(250, seed=13)
     v = jnp.asarray(mesh.vertices)
     i = jnp.asarray(mesh.indices)
-    # Production config-2 shape (round 5): sub-leaf clustered build +
-    # area-collapse kernel (top_sah was the retired r4 lever).
     msp = 8
     b0 = build_lbvh(v, i, leaf_size=4, split_blocks=msp)
     nw = round_up_bucket(max(count_wide(b0, mode="area"), 1), 64)
-    _, wide, _, _, _, cnt = _rebuild_fused(v, i, mesh, 4, nw,
-                                           tables="st", collapse="area",
-                                           split_blocks=msp)
+    _, wide, st, cnt = _rebuild_fused(v, i, mesh, 4, nw, collapse="area",
+                                      split_blocks=msp)
     assert int(cnt) <= nw
+    assert st.shape[0] == wide.tri_id.shape[0]
     rng = np.random.default_rng(2)
     o = rng.uniform(-9, 9, (64, 3)).astype(np.float32)
     d = rng.normal(size=(64, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     wt, _ = brute_force_closest(mesh, o, d)
-    jt, _ = trace_closest_pallas(wide, jnp.asarray(o), jnp.asarray(d),
-                                 interpret=True)
+    jt, _, err = traverse_wide(wide, jnp.asarray(o), jnp.asarray(d))
+    assert int(err) == 0
     np.testing.assert_allclose(np.asarray(jt), wt, rtol=3e-4, atol=1e-6)
 
 
-@pytest.mark.slow  # round-5 re-tier: ~14 s of serial interpret BFS; the
-# fast signal keeps the E2E brute-force trace guard above
+@pytest.mark.slow
 def test_kernel_collapse_structure():
     """Structural invariants: root is wide id 0; every wide row's children
     are dense ids < count or leaves; leaf coverage is a partition."""
     mesh = random_soup(250, seed=9)
-    v = jnp.asarray(mesh.vertices)
-    i = jnp.asarray(mesh.indices)
-    deferred = build_lbvh(v, i, leaf_size=4, boxes="defer")
-    nw_pad = round_up_bucket(
-        max(count_wide(build_lbvh(v, i, leaf_size=4), mode="area"), 1), 64)
-    acc, count = widen_area_kernel(deferred, nw_pad)
-    count = int(count)
+    full = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices),
+                      leaf_size=4)
+    count = count_wide(full, mode="area")
+    acc = widen_lbvh(full, nw_pad=round_up_bucket(max(count, 1), 64),
+                     mode="area")
     rows = np.asarray(acc.nodes).reshape(-1, 8, 16)
     refs = rows[:, :, 6].astype(np.int64)
     empty = rows[:, :, 0] > rows[:, :, 3]
-    nl = deferred.num_leaves
+    nl = full.num_leaves
     seen = np.zeros(nl, bool)
     for w in range(count):
         for s in range(8):

@@ -122,7 +122,9 @@ def test_render_config_static_hashable():
     c = RenderConfig(width=64, height=32)
     assert hash(c) == hash(RenderConfig(width=64, height=32))
     assert c.num_pixels == 64 * 32
-    assert c.packet_size == 1024
+    assert c.use_kernel and c.bvh_width == 8
+    assert hash(c) != hash(RenderConfig(width=64, height=32,
+                                        use_kernel=False))
 
 
 def test_camera_orbit():

@@ -1,6 +1,6 @@
 """Implicit 8-ary Morton BVH (tpurt/bvh/implicit.py): build/refit parity
 against the brute-force oracle, corners-path equivalence, and layout
-invariants. CPU, Pallas interpret mode (SURVEY.md §4.2 oracle strategy)."""
+invariants. CPU, XLA wide walk (SURVEY.md §4.2 oracle strategy)."""
 
 import jax
 import jax.numpy as jnp
@@ -13,8 +13,22 @@ from tpurt.bvh.implicit import (build_wide_implicit,
                                 num_wide_implicit, refit_wide_implicit,
                                 refit_wide_implicit_corners)
 from tpurt.bvh.reference import brute_force_any, brute_force_closest
-from tpurt.kernels.traverse import trace_any_pallas, trace_closest_pallas
+from tpurt.bvh.traverse import traverse_wide
 from tpurt.scenes import deform, random_soup, teapot_scene
+
+
+def trace_any_wide(wide, o, d, t_max):
+    """Occlusion from the XLA wide walk (the CUDA kernel's plain twin)."""
+    _, sidx, errors = traverse_wide(wide, o, d, t_max=t_max, any_hit=True)
+    assert int(errors) == 0
+    return sidx >= 0
+
+
+def trace_closest_wide(wide, o, d):
+    """(t, original tri_id) from the XLA wide walk."""
+    t, sidx, errors = traverse_wide(wide, o, d)
+    assert int(errors) == 0
+    return t, jnp.where(sidx >= 0, wide.tri_id[jnp.maximum(sidx, 0)], -1)
 
 
 def _rays_for(mesh, n=512, seed=3):
@@ -46,8 +60,7 @@ def test_implicit_any_hit_matches_oracle(scene, leaf):
                    static_argnames=("leaf_size",))(
         mesh.vertices, mesh.indices, leaf_size=leaf)
     o, d = _rays_for(mesh)
-    occ = trace_any_pallas(wide, o, d, jnp.full(o.shape[0], 3.4e38),
-                           interpret=True)
+    occ = trace_any_wide(wide, o, d, jnp.full(o.shape[0], 3.4e38))
     want = brute_force_any(mesh, np.asarray(o), np.asarray(d))
     np.testing.assert_array_equal(np.asarray(occ), want)
 
@@ -56,7 +69,7 @@ def test_implicit_closest_matches_oracle():
     mesh = random_soup(500, seed=5)
     wide = build_wide_implicit(mesh.vertices, mesh.indices, leaf_size=6)
     o, d = _rays_for(mesh, n=256, seed=9)
-    t_k, id_k = trace_closest_pallas(wide, o, d, interpret=True)
+    t_k, id_k = trace_closest_wide(wide, o, d)
     t_ref, _ = brute_force_closest(mesh, np.asarray(o), np.asarray(d))
     hit = np.isfinite(t_ref)
     assert (np.asarray(id_k >= 0) == hit).all()
@@ -91,8 +104,7 @@ def test_implicit_refit_is_correct_on_deformed_geometry():
     assert refit.nodes.shape == wide.nodes.shape
     mesh2 = dataclasses.replace(mesh, vertices=v2)
     o, d = _rays_for(mesh2, n=384, seed=13)
-    occ = trace_any_pallas(refit, o, d, jnp.full(o.shape[0], 3.4e38),
-                           interpret=True)
+    occ = trace_any_wide(refit, o, d, jnp.full(o.shape[0], 3.4e38))
     want = brute_force_any(mesh2, np.asarray(o), np.asarray(d))
     np.testing.assert_array_equal(np.asarray(occ), want)
 

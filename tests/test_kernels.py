@@ -1,8 +1,8 @@
-"""Stage-5 tests: Pallas packet-traversal kernel vs the JAX traversal.
-
-Runs in interpreter mode on CPU (SURVEY.md §3.5: the interpret/compiled axis
-replaces the reference's compute-vs-NV-hardware mode axis; compiled-mode
-parity is exercised on real TPU by bench.py and the opt-in TPU smoke test).
+"""The 8-wide walk (bvh/traverse.traverse_wide, the plain twin of the CUDA
+kernel and the route every CPU run takes) against the binary JAX traversal,
+plus the CUDA wrapper's host-side logic: ray packing, launch geometry,
+accel checks, and its refusal to run off a GPU. The kernel itself runs on
+the card: tests/test_gpu.py.
 """
 
 import jax
@@ -11,10 +11,8 @@ import numpy as np
 import pytest
 
 from tpurt.bvh.lbvh import build_lbvh
-from tpurt.bvh.traverse import traverse
-from tpurt.kernels.pack import pack_bvh, vmem_bytes
-from tpurt.kernels.traverse import (from_packets, to_packets,
-                                    trace_any_pallas, trace_closest_pallas)
+from tpurt.bvh.traverse import traverse, traverse_wide
+from tpurt.bvh.wide import build_wide
 from tpurt.scenes import random_soup, teapot_scene
 
 
@@ -30,100 +28,38 @@ def _rays(rng, n, extent=8.0):
     return o, d
 
 
-# ---------------------------------------------------------------------------
-# Packing
-# ---------------------------------------------------------------------------
-
-def test_pack_roundtrip_node_records():
-    mesh = random_soup(100, seed=0)
-    bvh = _build(mesh)
-    packed = pack_bvh(bvh)
-    ni = bvh.num_internal
-    rec = np.asarray(packed.nodes).reshape(-1, 16)[:ni]
-    np.testing.assert_allclose(rec[:, :12], np.asarray(bvh.nodes_box))
-    child = rec[:, 12:14].astype(np.int32)  # float-encoded exact ints
-    np.testing.assert_array_equal(child, np.asarray(bvh.nodes_child))
-    # Leaf rows carry k*9 floats of (v0, e1, e2).
-    k = bvh.leaf_size
-    tris = np.asarray(packed.tris)
-    assert tris.shape == (bvh.num_leaves, 128)
-    row0 = tris[0, :9]
-    np.testing.assert_allclose(row0[:3], np.asarray(bvh.tri_v0)[0])
-    np.testing.assert_allclose(row0[3:6], np.asarray(bvh.tri_e1)[0])
-    assert vmem_bytes(packed) == (packed.nodes.size + packed.tris.size) * 4
+def trace_closest_wide(bvh, o, d, t_max=jnp.inf):
+    """(t, original tri_id) from the wide walk of ``bvh``'s 8-wide rows."""
+    wide = build_wide(bvh)
+    t, sidx, errors = traverse_wide(wide, jnp.asarray(o), jnp.asarray(d),
+                                    t_max=t_max)
+    assert int(errors) == 0
+    tid = jnp.where(sidx >= 0, wide.tri_id[jnp.maximum(sidx, 0)], -1)
+    return t, tid
 
 
-def test_pack_rejects_oversized_leaf_size():
-    """The guard fires on leaf_size alone, before any array is touched —
-    a stub keeps this in the fast signal (the built-LBVH variant below
-    rides the slow tier)."""
-    import types as _types
-    with pytest.raises(ValueError, match="128-lane row"):
-        pack_bvh(_types.SimpleNamespace(leaf_size=15))
-
-
-@pytest.mark.slow  # round-5 re-tier: ~8 s of builder tracing per param
-@pytest.mark.parametrize("leaf_size", [15, 20])
-def test_pack_rejects_oversized_leaves(leaf_size):
-    mesh = random_soup(64, seed=1)
-    bvh = _build(mesh, leaf_size=leaf_size)
-    with pytest.raises(ValueError):
-        pack_bvh(bvh)
+def trace_any_wide(bvh, o, d, t_max, t_min=0.0):
+    _, sidx, errors = traverse_wide(build_wide(bvh), jnp.asarray(o),
+                                    jnp.asarray(d), t_min=t_min,
+                                    t_max=t_max, any_hit=True)
+    assert int(errors) == 0
+    return sidx >= 0
 
 
 # ---------------------------------------------------------------------------
-# Packet tiling
+# Wide walk vs binary JAX traversal
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("h,w", [(64, 96), (50, 70), (32, 32), (1, 200)])
-def test_packet_tiling_roundtrip(h, w):
-    rng = np.random.default_rng(h * w)
-    a = rng.normal(size=(h, w)).astype(np.float32)
-    p = to_packets(jnp.asarray(a))
-    assert p.shape[1:] == (8, 128)
-    back = np.asarray(from_packets(p, h, w))
-    np.testing.assert_array_equal(back, a)
-
-
-# ---------------------------------------------------------------------------
-# Kernel vs JAX traversal (interpret mode)
-# ---------------------------------------------------------------------------
-
-# Round-5 re-tier: leaf 14 (the production size) stays in the fast
-# signal; the degenerate/intermediate sizes ride the slow tier (~8 s of
-# interpret-mode walk each on the 1-CPU box).
-@pytest.mark.parametrize(
-    "leaf_size", [pytest.param(1, marks=pytest.mark.slow),
-                  pytest.param(4, marks=pytest.mark.slow),
-                  pytest.param(8, marks=pytest.mark.slow), 14])
+@pytest.mark.parametrize("leaf_size", [1, 4, 8, 14])
 def test_closest_matches_jax_traversal(leaf_size, rng):
     mesh = random_soup(150, seed=leaf_size)
     bvh = _build(mesh, leaf_size=leaf_size)
     o, d = _rays(rng, 700)
     t_ref, id_ref = traverse(bvh, jnp.asarray(o), jnp.asarray(d))
-    t_k, id_k = trace_closest_pallas(bvh, jnp.asarray(o), jnp.asarray(d),
-                                     interpret=True)
+    t_k, id_k = trace_closest_wide(bvh, o, d)
     np.testing.assert_allclose(np.asarray(t_ref), np.asarray(t_k),
                                rtol=1e-5, atol=1e-7)
     np.testing.assert_array_equal(np.asarray(id_ref), np.asarray(id_k))
-
-
-@pytest.mark.slow  # round-5 re-tier: the seeded two-pass closest hit is
-# a measured-out variant (probe r3aa kept for reproducibility)
-@pytest.mark.parametrize("leaf_size", [4, 14])
-def test_seeded_closest_matches_unseeded(leaf_size, rng):
-    """Two-pass seeded closest hit is exact: identical (t, id) to the
-    single-pass kernel (the seed is a conservative upper bound only)."""
-    mesh = random_soup(150, seed=100 + leaf_size)
-    bvh = _build(mesh, leaf_size=leaf_size)
-    o, d = _rays(rng, 700)
-    t_ref, id_ref = trace_closest_pallas(bvh, jnp.asarray(o),
-                                         jnp.asarray(d), interpret=True)
-    t_s, id_s = trace_closest_pallas(bvh, jnp.asarray(o), jnp.asarray(d),
-                                     interpret=True, seeded=True)
-    np.testing.assert_allclose(np.asarray(t_ref), np.asarray(t_s),
-                               rtol=1e-5, atol=1e-7)
-    np.testing.assert_array_equal(np.asarray(id_ref), np.asarray(id_s))
 
 
 def test_any_hit_matches_jax_traversal(rng):
@@ -132,9 +68,7 @@ def test_any_hit_matches_jax_traversal(rng):
     o, d = _rays(rng, 1024, extent=6.0)
     _, id_ref = traverse(bvh, jnp.asarray(o), jnp.asarray(d), t_min=1e-4,
                          any_hit=True)
-    occ = trace_any_pallas(bvh, jnp.asarray(o), jnp.asarray(d),
-                           t_max=jnp.full(1024, 3e38), t_min=1e-4,
-                           interpret=True)
+    occ = trace_any_wide(bvh, o, d, t_max=jnp.full(1024, 3e38), t_min=1e-4)
     np.testing.assert_array_equal(np.asarray(id_ref) >= 0, np.asarray(occ))
 
 
@@ -148,8 +82,7 @@ def test_any_hit_respects_tmax(rng):
     # no: any hit in (0, tmax); cutting below the closest t of the FIRST hit
     # may still find others? closest is minimal -> no hit possible.
     tmax = np.where(np.isfinite(t_ref), t_ref * 0.999, 0.5).astype(np.float32)
-    occ = trace_any_pallas(bvh, jnp.asarray(o), jnp.asarray(d),
-                           t_max=jnp.asarray(tmax), interpret=True)
+    occ = trace_any_wide(bvh, o, d, t_max=jnp.asarray(tmax))
     occ = np.asarray(occ)
     assert not occ[np.isfinite(t_ref)].any()
 
@@ -158,21 +91,20 @@ def test_inactive_rays_skip(rng):
     mesh = random_soup(80, seed=6)
     bvh = _build(mesh)
     o, d = _rays(rng, 256)
-    occ = trace_any_pallas(bvh, jnp.asarray(o), jnp.asarray(d),
-                           t_max=jnp.zeros(256), interpret=True)
+    occ = trace_any_wide(bvh, o, d, t_max=jnp.zeros(256))
     assert not np.asarray(occ).any()
 
 
 def test_image_shaped_rays(rng):
-    """(H, W, 3) ray grids go through the spatial 32x32 tiling path."""
+    """(H, W, 3) ray grids keep their shape through the flat walk."""
     mesh = teapot_scene(300)
     bvh = _build(mesh)
     from tpurt.scenes import default_camera_for
     from tpurt.camera import generate_rays
     cam = default_camera_for(mesh)
-    o, d = generate_rays(cam, 40, 36)  # non-multiples of 32 -> padding
+    o, d = generate_rays(cam, 40, 36)
     t_ref, id_ref = traverse(bvh, o, d)
-    t_k, id_k = trace_closest_pallas(bvh, o, d, interpret=True)
+    t_k, id_k = trace_closest_wide(bvh, o, d)
     assert t_k.shape == (36, 40)
     np.testing.assert_allclose(np.asarray(t_ref), np.asarray(t_k),
                                rtol=1e-5, atol=1e-7)
@@ -180,8 +112,10 @@ def test_image_shaped_rays(rng):
 
 
 def test_full_pipeline_with_pallas_tracers(rng):
-    """render_frame_fn with use_pallas=True (interpret) == use_pallas=False."""
+    """render_frame_fn on the 8-wide accel (XLA wide walk + shade table)
+    == render_frame_fn on the binary LBVH (XLA binary walk)."""
     from tpurt.app import render_frame_fn
+    from tpurt.passes.shading import make_shade_table
     from tpurt.scenes import default_camera_for
     from tpurt.types import Light, RenderConfig
     mesh = teapot_scene(1200)
@@ -189,38 +123,21 @@ def test_full_pipeline_with_pallas_tracers(rng):
     light = Light.directional((0.45, 0.8, 0.3))
     bvh = _build(mesh, leaf_size=8)
     key = jax.random.PRNGKey(0)
-    a = render_frame_fn(bvh, mesh, cam, (light,), key,
-                        RenderConfig(width=64, height=48, use_pallas=True,
-                                     leaf_size=8))
+    a = render_frame_fn(build_wide(bvh), mesh, cam, (light,), key,
+                        RenderConfig(width=64, height=48, use_kernel=False,
+                                     leaf_size=8),
+                        shade_table=make_shade_table(bvh, mesh))
     b = render_frame_fn(bvh, mesh, cam, (light,), key,
-                        RenderConfig(width=64, height=48, use_pallas=False,
-                                     leaf_size=8))
+                        RenderConfig(width=64, height=48, use_kernel=False,
+                                     leaf_size=8, bvh_width=2))
+    assert int(a["trace_errors"]) == int(b["trace_errors"]) == 0
+    # Same hits and shadows exactly; the image differs only by the shade
+    # table's octahedral normal encoding (the binary route gathers the
+    # mesh's own normals).
+    for k in ("valid", "tri_id", "shadow"):
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
     np.testing.assert_allclose(np.asarray(a["image"]), np.asarray(b["image"]),
-                               rtol=1e-4, atol=1e-5)
-
-
-@pytest.mark.parametrize("leaf_size", [8, 16])
-@pytest.mark.slow
-def test_w8t_transposed_leaf_parity(rng, leaf_size):
-    """Hybrid WideBVHT (transposed leaves) matches the pure-JAX oracle for
-    both any-hit and closest-hit, for both supported leaf sizes."""
-    from tpurt.bvh.wide import build_wide, build_wide_t
-    from tpurt.scenes import default_camera_for
-    from tpurt.camera import generate_rays
-    mesh = teapot_scene(1500)
-    bvh = _build(mesh, leaf_size=leaf_size)
-    accel_t = jax.jit(build_wide_t)(build_wide(bvh), bvh)
-    cam = default_camera_for(mesh)
-    o, d = generate_rays(cam, 96, 64)
-    t_ref, id_ref = traverse(bvh, o, d)
-    t_k, id_k = trace_closest_pallas(accel_t, o, d, interpret=True)
-    np.testing.assert_allclose(np.asarray(t_ref), np.asarray(t_k),
-                               rtol=1e-5, atol=1e-7)
-    np.testing.assert_array_equal(np.asarray(id_ref), np.asarray(id_k))
-    occ = trace_any_pallas(accel_t, o, d, jnp.full((64, 96), 3.4e38),
-                           interpret=True)
-    np.testing.assert_array_equal(np.asarray(occ),
-                                  np.asarray(id_ref) >= 0)
+                               rtol=1e-4, atol=5e-3)
 
 
 def test_scene_exit_t_cap_preserves_occlusion(rng):
@@ -244,280 +161,8 @@ def test_scene_exit_t_cap_preserves_occlusion(rng):
     sd = jnp.broadcast_to(jnp.asarray(ldir), so.shape)
     cap = scene_exit_t(so, sd, (bvh.root_min, bvh.root_max))
     assert bool(jnp.all(cap >= 0.0))
-    occ_inf = trace_any_pallas(bvh, so, sd,
-                               jnp.where(jnp.asarray(valid), 3.4e38, 0.0),
-                               interpret=True)
-    occ_cap = trace_any_pallas(bvh, so, sd,
-                               jnp.where(jnp.asarray(valid), cap, 0.0),
-                               interpret=True)
+    occ_inf = trace_any_wide(bvh, so, sd,
+                             jnp.where(jnp.asarray(valid), 3.4e38, 0.0))
+    occ_cap = trace_any_wide(bvh, so, sd,
+                             jnp.where(jnp.asarray(valid), cap, 0.0))
     np.testing.assert_array_equal(np.asarray(occ_inf), np.asarray(occ_cap))
-
-
-@pytest.mark.slow
-def test_soft_kernel_zero_rng_matches_hard():
-    """trace_any_soft_pallas in TPU-interpret mode: the interpreter's PRNG
-    is a zero bit stream, so every cone sample degenerates to the exact
-    axis direction — counts must equal spp x the hard-shadow occlusion.
-    (The RNG distribution itself is validated on hardware by the opt-in
-    TPU test; this pins the traversal/masking/accumulation plumbing.)"""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpurt.bvh.wide import build_wide
-    from tpurt.camera import generate_rays
-    from tpurt.kernels.traverse import trace_any_soft_pallas
-    from tpurt.scenes import default_camera_for
-
-    mesh = teapot_scene(1200)
-    wide = build_wide(_build(mesh, leaf_size=8))
-    cam = default_camera_for(mesh)
-    o, d = generate_rays(cam, 64, 64)
-    t, tid = trace_closest_pallas(wide, o, d, interpret=True)
-    valid = tid >= 0
-    axis = jnp.asarray([0.45, 0.8, 0.3])
-    axis = axis / jnp.linalg.norm(axis)
-    origins = (o + d * jnp.where(valid, t, 0.0)[..., None]) + 1e-3 * axis
-    occ_hard = trace_any_pallas(wide, origins,
-                                jnp.broadcast_to(axis, origins.shape),
-                                jnp.where(valid, 3.4e38, 0.0),
-                                interpret=True)
-    counts = trace_any_soft_pallas(wide, origins, valid, axis,
-                                   jnp.cos(0.04), 4, 7,
-                                   interpret=pltpu.InterpretParams())
-    c = np.asarray(counts)
-    v = np.asarray(valid)
-    assert set(np.unique(c[v])) <= {0, 4}
-    assert (c[v] == 4 * np.asarray(occ_hard)[v]).all()
-    assert (c[~v] == 0).all()
-
-
-@pytest.mark.slow
-def test_point_soft_kernel_zero_rng_matches_hard():
-    """trace_any_point_soft_pallas in TPU-interpret mode: the zero PRNG
-    stream puts every disk sample at the light center, so counts must
-    equal spp x the hard point-shadow occlusion (shadow_ray_batch's
-    unjittered point path) up to boundary fp noise — the per-lane Duff
-    basis and target derivation cancel exactly at r=0 only in exact
-    arithmetic, so a trace amount of t-cap boundary flips is allowed."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpurt.bvh.wide import build_wide
-    from tpurt.camera import generate_rays
-    from tpurt.kernels.traverse import trace_any_point_soft_pallas
-    from tpurt.passes.shadow import shadow_ray_batch
-    from tpurt.scenes import default_camera_for
-
-    mesh = teapot_scene(1200)
-    wide = build_wide(_build(mesh, leaf_size=8))
-    cam = default_camera_for(mesh)
-    o, d = generate_rays(cam, 64, 64)
-    t, tid = trace_closest_pallas(wide, o, d, interpret=True)
-    valid = tid >= 0
-    ctr = 0.5 * (np.asarray(wide.root_min) + np.asarray(wide.root_max))
-    lpos = jnp.asarray(ctr + np.float32([0.1, 1.2, 0.2]) * (
-        np.asarray(wide.root_max) - np.asarray(wide.root_min)), jnp.float32)
-    up = jnp.asarray([0.0, 1.0, 0.0])
-    origins = (o + d * jnp.where(valid, t, 0.0)[..., None]) + 1e-3 * up
-    gbuf = {"position": origins - 1e-3 * up,
-            "gnormal": jnp.broadcast_to(up, origins.shape),
-            "valid": valid}
-    from tpurt.types import Light
-    plight = Light.point(np.asarray(lpos), radius=0.5)
-    so, sd, stm = shadow_ray_batch(gbuf, plight, 1e-3, None)
-    occ_hard = trace_any_pallas(wide, so, sd, stm, interpret=True)
-    counts = trace_any_point_soft_pallas(
-        wide, so, valid, lpos, jnp.float32(0.5), 4, 7,
-        interpret=pltpu.InterpretParams())
-    c = np.asarray(counts)
-    v = np.asarray(valid)
-    assert set(np.unique(c[v])) <= {0, 4}
-    mism = (c[v] != 4 * np.asarray(occ_hard)[v].astype(np.int32))
-    assert mism.mean() <= 1e-3, f"{mism.sum()} mismatched pixels"
-    assert (c[~v] == 0).all()
-
-
-# ---------------------------------------------------------------------------
-# Attribute-tracked closest hit (zero-gather G-buffer)
-# ---------------------------------------------------------------------------
-
-@pytest.mark.slow
-def test_attr_gbuffer_matches_table_path():
-    """gbuffer_attr_pass (winner attributes selected inside the traversal
-    kernel) vs gbuffer_pass over the packed shade table: hit set bit-exact,
-    shading attributes equal up to the barycentric source (the kernel uses
-    its exact Möller–Trumbore u/v; the table path re-derives u/v from the
-    hit position)."""
-    from tpurt.bvh.wide import build_wide
-    from tpurt.camera import generate_rays
-    from tpurt.passes.gbuffer import gbuffer_attr_pass, gbuffer_pass
-    from tpurt.passes.shading import make_leaf_attr_rows, make_shade_table
-    from tpurt.scenes import default_camera_for
-
-    mesh = teapot_scene(2500)
-    bvh = _build(mesh, leaf_size=14)   # k > 8 exercises the at1 rows
-    wide = build_wide(bvh)
-    st = make_shade_table(bvh, mesh)
-    at = make_leaf_attr_rows(bvh, mesh)
-    cam = default_camera_for(mesh)
-    W, H = 96, 72
-
-    def tracer(o, d):
-        return trace_closest_pallas(wide, o, d, return_sorted=True,
-                                    gather_tri_id=False)
-    ref = gbuffer_pass(tracer, mesh, cam, W, H, shade_table=st)
-    got = gbuffer_attr_pass(wide, at, mesh, cam, W, H)
-    np.testing.assert_array_equal(
-        np.nan_to_num(np.asarray(ref["t"]), posinf=1e30),
-        np.nan_to_num(np.asarray(got["t"]), posinf=1e30))
-    np.testing.assert_array_equal(np.asarray(ref["tri_id"]),
-                                  np.asarray(got["tri_id"]))
-    np.testing.assert_array_equal(np.asarray(ref["valid"]),
-                                  np.asarray(got["valid"]))
-    vm = np.asarray(ref["valid"])
-    # normal: the attr rows quantize oct pairs to 12 bits (pack_oct12,
-    # ~1e-3 rad) and the kernel uses exact MT barycentrics — direction
-    # tolerance, not bit equality.
-    for key, tol in (("position", 0.0), ("albedo", 0.0), ("gnormal", 0.0),
-                     ("depth", 0.0), ("normal", 5e-3)):
-        a, b = np.asarray(ref[key]), np.asarray(got[key])
-        d = np.abs(a - b)[vm]
-        assert d.max() <= tol, f"{key}: max|d|={d.max()}"
-    dots = np.sum(np.asarray(ref["normal"]) * np.asarray(got["normal"]),
-                  axis=-1)[vm]
-    assert dots.min() > 1.0 - 5e-6
-
-
-@pytest.mark.slow
-def test_attr_gbuffer_textured_uv_layer():
-    """The in-kernel interpolated uv + layer must reproduce the shade-table
-    path's texture coordinates (the attr rows carry uv0/d1/d2 and the MT
-    barycentrics interpolate in-kernel)."""
-    from tpurt.bvh.wide import build_wide
-    from tpurt.passes.gbuffer import gbuffer_attr_pass, gbuffer_pass
-    from tpurt.passes.shading import make_leaf_attr_rows, make_shade_table
-    from tpurt.types import Camera, Mesh
-
-    # Textured unit quad (two triangles), camera straight on.
-    v = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]], np.float32)
-    n = np.tile(np.float32([0, 0, 1]), (4, 1))
-    idx = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
-    uv = v[:, :2].astype(np.float32)
-    atlas = np.zeros((2, 4, 4, 3), np.float32)
-    atlas[0, :, :, 0] = 1.0
-    mesh = Mesh(vertices=v, normals=n, indices=idx,
-                albedo=np.tile(np.float32([0.5, 0.5, 0.5]), (2, 1)),
-                uv=uv, tex_atlas=atlas, tri_tex=np.zeros(2, np.int32))
-    assert mesh.textured
-    bvh = _build(mesh, leaf_size=4)
-    wide = build_wide(bvh)
-    st = make_shade_table(bvh, mesh)
-    at = make_leaf_attr_rows(bvh, mesh)
-    cam = Camera.look_at((0.5, 0.5, 2.2), (0.5, 0.5, 0.0), fov_y_deg=40.0)
-    W, H = 64, 64
-
-    def tracer(o, d):
-        return trace_closest_pallas(wide, o, d, return_sorted=True,
-                                    gather_tri_id=False)
-    ref = gbuffer_pass(tracer, mesh, cam, W, H, shade_table=st)
-    got = gbuffer_attr_pass(wide, at, mesh, cam, W, H)
-    vm = np.asarray(ref["valid"])
-    assert vm.any()
-    np.testing.assert_array_equal(vm, np.asarray(got["valid"]))
-    duv = np.abs(np.asarray(ref["uv"]) - np.asarray(got["uv"]))[vm]
-    assert duv.max() <= 1e-5, f"uv max|d|={duv.max()}"
-    np.testing.assert_array_equal(np.asarray(ref["tex_layer"]),
-                                  np.asarray(got["tex_layer"]))
-
-
-@pytest.mark.parametrize("leaf_size", [8, 16])
-@pytest.mark.slow
-def test_attr_gbuffer_w8t_matches_row_or_table(leaf_size):
-    """The w8t attribute-tracked G-buffer (transposed leaves + transposed
-    attr rows, zero per-candidate scalar reads) matches the row attr pass
-    (leaf 8 — identical winners on the same LBVH) / the shade-table path
-    (leaf 16 — the row attr kernel cannot hold 16-triangle leaves)."""
-    from tpurt.bvh.wide import build_wide, build_wide_t
-    from tpurt.passes.gbuffer import gbuffer_attr_pass, gbuffer_pass
-    from tpurt.passes.shading import (make_leaf_attr_rows,
-                                      make_leaf_attr_rows_t,
-                                      make_shade_table)
-    from tpurt.scenes import default_camera_for
-
-    mesh = teapot_scene(2500)
-    bvh = _build(mesh, leaf_size=leaf_size)
-    wide = build_wide(bvh)
-    accel_t = jax.jit(build_wide_t)(wide, bvh)
-    at_t = make_leaf_attr_rows_t(bvh, mesh)
-    cam = default_camera_for(mesh)
-    W, H = 96, 72
-
-    if leaf_size == 8:
-        at = make_leaf_attr_rows(bvh, mesh)
-        ref = gbuffer_attr_pass(wide, at, mesh, cam, W, H)
-    else:
-        st = make_shade_table(bvh, mesh)
-
-        def tracer(o, d):
-            return trace_closest_pallas(accel_t, o, d, return_sorted=True,
-                                        gather_tri_id=False)
-        ref = gbuffer_pass(tracer, mesh, cam, W, H, shade_table=st)
-    got = gbuffer_attr_pass(accel_t, at_t, mesh, cam, W, H)
-
-    np.testing.assert_array_equal(np.asarray(ref["valid"]),
-                                  np.asarray(got["valid"]))
-    np.testing.assert_array_equal(np.asarray(ref["tri_id"]),
-                                  np.asarray(got["tri_id"]))
-    np.testing.assert_allclose(
-        np.nan_to_num(np.asarray(ref["t"]), posinf=1e30),
-        np.nan_to_num(np.asarray(got["t"]), posinf=1e30),
-        rtol=1e-6, atol=1e-7)
-    vm = np.asarray(ref["valid"])
-    for key, tol in (("position", 1e-5), ("albedo", 0.0),
-                     ("depth", 1e-5), ("normal", 5e-3)):
-        a, b = np.asarray(ref[key]), np.asarray(got[key])
-        d = np.abs(a - b)[vm]
-        assert d.max() <= tol, f"{key}: max|d|={d.max()}"
-    # gnormal: same triangle -> same direction (row path normalizes the
-    # same cross product; table path at leaf 16 likewise).
-    dots = np.sum(np.asarray(ref["gnormal"]) * np.asarray(got["gnormal"]),
-                  axis=-1)[vm]
-    assert dots.min() > 1.0 - 1e-5
-
-
-@pytest.mark.slow
-def test_attr_gbuffer_w8t_textured_uv_layer():
-    """w8t in-kernel uv/layer tracking vs the shade-table path (slow tier
-    since round 5: the w8t attr path was measured-and-retired on TPU —
-    probe r4h, 181.6 vs 111.0 ms in-process — so its parity coverage
-    follows it out of the fast tier)."""
-    from tpurt.bvh.wide import build_wide, build_wide_t
-    from tpurt.passes.gbuffer import gbuffer_attr_pass, gbuffer_pass
-    from tpurt.passes.shading import make_leaf_attr_rows_t, make_shade_table
-    from tpurt.types import Camera, Mesh
-
-    v = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]], np.float32)
-    n = np.tile(np.float32([0, 0, 1]), (4, 1))
-    idx = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
-    uv = v[:, :2].astype(np.float32)
-    atlas = np.zeros((2, 4, 4, 3), np.float32)
-    atlas[0, :, :, 0] = 1.0
-    mesh = Mesh(vertices=v, normals=n, indices=idx,
-                albedo=np.tile(np.float32([0.5, 0.5, 0.5]), (2, 1)),
-                uv=uv, tex_atlas=atlas, tri_tex=np.zeros(2, np.int32))
-    bvh = _build(mesh, leaf_size=8)
-    wide = build_wide(bvh)
-    accel_t = build_wide_t(wide, bvh)
-    st = make_shade_table(bvh, mesh)
-    at_t = make_leaf_attr_rows_t(bvh, mesh)
-    cam = Camera.look_at((0.5, 0.5, 2.2), (0.5, 0.5, 0.0), fov_y_deg=40.0)
-    W, H = 64, 64
-
-    def tracer(o, d):
-        return trace_closest_pallas(accel_t, o, d, return_sorted=True,
-                                    gather_tri_id=False)
-    ref = gbuffer_pass(tracer, mesh, cam, W, H, shade_table=st)
-    got = gbuffer_attr_pass(accel_t, at_t, mesh, cam, W, H)
-    vm = np.asarray(ref["valid"])
-    assert vm.any()
-    np.testing.assert_array_equal(vm, np.asarray(got["valid"]))
-    duv = np.abs(np.asarray(ref["uv"]) - np.asarray(got["uv"]))[vm]
-    assert duv.max() <= 1e-5, f"uv max|d|={duv.max()}"
-    np.testing.assert_array_equal(np.asarray(ref["tex_layer"]),
-                                  np.asarray(got["tex_layer"]))

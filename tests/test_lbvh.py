@@ -276,141 +276,6 @@ def test_build_under_jit_and_grad_free():
     assert np.isfinite(np.asarray(out)).all()
 
 
-@pytest.mark.slow
-def test_builder_kernel_matches_search():
-    """build_lbvh(builder="kernel") — the Pallas Cartesian-stack topology
-    (interpret mode here) — must produce a tree whose traversal results
-    match the binary-search builder's (topologies may differ only in
-    delta tie-breaks, which cannot change any intersection)."""
-    from tpurt.bvh.traverse import traverse
-    from tpurt.camera import generate_rays
-    from tpurt.scenes import default_camera_for, teapot_scene
-    mesh = teapot_scene(1500)
-    b1 = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices),
-                    leaf_size=8, builder="search")
-    b2 = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices),
-                    leaf_size=8, builder="kernel")
-    assert np.allclose(np.asarray(b1.root_min), np.asarray(b2.root_min))
-    assert np.allclose(np.asarray(b1.root_max), np.asarray(b2.root_max))
-    o, d = generate_rays(default_camera_for(mesh), 48, 32)
-    t1, i1 = traverse(b1, o, d)
-    t2, i2 = traverse(b2, o, d)
-    t1, t2 = np.asarray(t1), np.asarray(t2)
-    ok = np.isclose(t1, t2, rtol=1e-5) | (np.isinf(t1) & np.isinf(t2))
-    assert ok.all()
-
-
-@pytest.mark.slow
-def test_builder_kernel_topology_exact_vs_scan():
-    """The kernel topology is the same Cartesian-tree construction as
-    karras_topology_scan — child/first/last must be EXACTLY equal."""
-    from tpurt.bvh.lbvh import adjacent_deltas, karras_topology_scan
-    from tpurt.bvh.morton import morton_of_points
-    from tpurt.kernels.build import topology_pallas
-    from tpurt.scenes import random_soup
-    mesh = random_soup(700, seed=11)
-    v = np.asarray(mesh.vertices)
-    idx = np.asarray(mesh.indices)
-    v0, v1, v2 = v[idx[:, 0]], v[idx[:, 1]], v[idx[:, 2]]
-    tmin = np.minimum(np.minimum(v0, v1), v2)
-    tmax = np.maximum(np.maximum(v0, v1), v2)
-    c = (tmin + tmax) * 0.5
-    chi = morton_of_points(jnp.asarray(c), jnp.asarray(tmin.min(0)),
-                           jnp.asarray(tmax.max(0)))
-    lc = (jnp.sort(chi)[::4], None)
-    c1, f1, l1 = karras_topology_scan(lc)
-    c2, f2, l2 = topology_pallas(adjacent_deltas(lc), interpret=True)
-    np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
-    np.testing.assert_array_equal(np.asarray(f1), np.asarray(f2))
-    np.testing.assert_array_equal(np.asarray(l1), np.asarray(l2))
-
-
-@pytest.mark.slow
-def test_builder_kernel_depth_output():
-    """topology_pallas(want_depth=True): the in-kernel reverse-finalize
-    depth sweep must equal wide.node_depths (the XLA pointer-doubling
-    pass it replaces in the fused rebuild), and the depth-carrying call
-    must not perturb child/first/last."""
-    from tpurt.bvh.lbvh import adjacent_deltas
-    from tpurt.bvh.morton import morton_of_points
-    from tpurt.bvh.wide import node_depths
-    from tpurt.kernels.build import topology_pallas
-    from tpurt.scenes import random_soup
-    for nt, leaf, seed in [(9, 1, 0), (700, 4, 11), (2000, 7, 3)]:
-        mesh = random_soup(nt, seed=seed)
-        v = np.asarray(mesh.vertices)
-        idx = np.asarray(mesh.indices)
-        v0, v1, v2 = v[idx[:, 0]], v[idx[:, 1]], v[idx[:, 2]]
-        tmin = np.minimum(np.minimum(v0, v1), v2)
-        tmax = np.maximum(np.maximum(v0, v1), v2)
-        c = (tmin + tmax) * 0.5
-        chi = morton_of_points(jnp.asarray(c), jnp.asarray(tmin.min(0)),
-                               jnp.asarray(tmax.max(0)))
-        srt = jnp.sort(chi)
-        lc = (srt[:(srt.shape[0] // leaf) * leaf:leaf], None)
-        d = adjacent_deltas(lc)
-        c1, f1, l1 = topology_pallas(d, interpret=True)
-        c2, f2, l2, dep = topology_pallas(d, interpret=True,
-                                          want_depth=True)
-        np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
-        np.testing.assert_array_equal(np.asarray(f1), np.asarray(f2))
-        np.testing.assert_array_equal(np.asarray(l1), np.asarray(l2))
-        np.testing.assert_array_equal(np.asarray(dep),
-                                      np.asarray(node_depths(c1)))
-
-
-@pytest.mark.slow  # round-5 re-tier: 16 s; the fixed-cut depth path is
-# no longer the production rebuild frontier (area kernel is)
-def test_build_lbvh_want_depth_widen_parity():
-    """build_lbvh(want_depth=True) + widen_lbvh(depths=...) must produce
-    the identical wide accel as the depth-free path (the fused rebuild
-    rides this), and the search builder must return depth=None."""
-    from tpurt.bvh.wide import (round_up_bucket, wide_count_device,
-                                widen_lbvh)
-    from tpurt.scenes import random_soup
-    mesh = random_soup(900, seed=5)
-    v, idx = jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices)
-    b_k, dep = build_lbvh(v, idx, leaf_size=4, builder="kernel",
-                          boxes="defer", want_depth=True)
-    assert dep is not None
-    _, dep_s = build_lbvh(v, idx, leaf_size=4, builder="search",
-                          boxes="defer", want_depth=True)
-    assert dep_s is None
-    nw = round_up_bucket(
-        max(int(wide_count_device(b_k, mode="fixed", depths=dep)), 1), 64)
-    w1 = widen_lbvh(b_k, nw_pad=nw, mode="fixed", depths=dep)
-    w2 = widen_lbvh(b_k, nw_pad=nw, mode="fixed")
-    np.testing.assert_array_equal(np.asarray(w1.nodes),
-                                  np.asarray(w2.nodes))
-
-
-def test_morton_codes_kernel_bitexact():
-    """morton_codes_pallas must equal the XLA morton_of_points bit-for-bit
-    (same quantize clamp, same dilation) — it feeds the sort keys, so any
-    drift silently reshapes every tree."""
-    from tpurt.bvh.morton import morton_of_points
-    from tpurt.kernels.build import morton_codes_pallas
-    key = jax.random.PRNGKey(3)
-    p = jax.random.uniform(key, (1537, 3), minval=-11.0, maxval=4.0)
-    smin, smax = p.min(axis=0), p.max(axis=0)
-    a = np.asarray(morton_of_points(p, smin, smax))
-    b = np.asarray(morton_codes_pallas(p, smin, smax, interpret=True))
-    np.testing.assert_array_equal(a, b)
-    # Degenerate extent axis (flat scene) must not produce NaN-poisoned keys.
-    p2 = p.at[:, 1].set(0.25)
-    a2 = np.asarray(morton_of_points(p2, p2.min(axis=0), p2.max(axis=0)))
-    b2 = np.asarray(morton_codes_pallas(p2, p2.min(axis=0), p2.max(axis=0),
-                                        interpret=True))
-    np.testing.assert_array_equal(a2, b2)
-    # 60-bit two-word variant.
-    from tpurt.bvh.morton import morton_of_points_60
-    from tpurt.kernels.build import morton_codes60_pallas
-    h1, l1 = morton_of_points_60(p, smin, smax)
-    h2, l2 = morton_codes60_pallas(p, smin, smax, interpret=True)
-    np.testing.assert_array_equal(np.asarray(h1), np.asarray(h2))
-    np.testing.assert_array_equal(np.asarray(l1), np.asarray(l2))
-
-
 def test_deferred_boxes_rebuild_bitexact():
     """build_lbvh(boxes="defer") + widen_lbvh must produce the EXACT same
     WideBVH as the full-box path: the deferred path answers every wide
@@ -441,27 +306,3 @@ def test_deferred_boxes_rebuild_bitexact():
                                   np.asarray(defer.root_min))
     np.testing.assert_array_equal(np.asarray(full.root_max),
                                   np.asarray(defer.root_max))
-
-
-def test_extra_payload_attr_tables_bitexact():
-    """Attr tables assembled from co-sorted payload columns
-    (build_lbvh(extra_payload=...) + leaf_attr_rows_from_sorted) must be
-    bit-identical to the post-build gather path (make_leaf_attr_rows) —
-    probe r3ac measured the gather path at ~16 ms of the Sponza rebuild,
-    so the rebuild rides the sort instead."""
-    from tpurt.passes.shading import (attr_payload_columns,
-                                      leaf_attr_rows_from_sorted,
-                                      make_leaf_attr_rows)
-    from tpurt.scenes import teapot_scene
-    mesh = teapot_scene(2000)
-    v = jnp.asarray(mesh.vertices)
-    i = jnp.asarray(mesh.indices)
-    cols = attr_payload_columns(mesh)
-    bvh, scols = build_lbvh(v, i, leaf_size=14, boxes="defer",
-                            extra_payload=cols)
-    at_p = leaf_attr_rows_from_sorted(scols, bvh.tri_id, bvh.num_leaves,
-                                      14, mesh.textured)
-    at_g = make_leaf_attr_rows(
-        build_lbvh(v, i, leaf_size=14, boxes="defer"), mesh)
-    for a, b in zip(at_p, at_g):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

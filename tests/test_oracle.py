@@ -1,7 +1,7 @@
 """Stage-2 tests: the NumPy CPU oracle (brute force + recursive BVH).
 
 The BVH-vs-brute-force agreement here is the root of the whole test pyramid:
-every JAX / Pallas path is later validated against these oracles, mirroring
+every JAX path is later validated against these oracles, mirroring
 the reference's compute-vs-NV-hardware cross-check (SURVEY.md §4).
 """
 

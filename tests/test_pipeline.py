@@ -80,7 +80,7 @@ def oracle_image(mesh, cam, light, cfg):
 
 def test_full_pipeline_matches_oracle(scene):
     mesh, cam, light = scene
-    cfg = RenderConfig(width=W, height=H, use_pallas=False)
+    cfg = RenderConfig(width=W, height=H, use_kernel=False, bvh_width=2)
     want_img, want_shadow, want_valid = oracle_image(mesh, cam, light, cfg)
 
     bvh = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices),
@@ -103,7 +103,7 @@ def test_full_pipeline_matches_oracle(scene):
 
 def test_renderer_shell_modes(scene):
     mesh, cam, light = scene
-    cfg = RenderConfig(width=32, height=24, use_pallas=False)
+    cfg = RenderConfig(width=32, height=24, use_kernel=False, bvh_width=2)
     r = Renderer(mesh, cam, light, cfg, mode="refit")
     out1 = r.render_frame()
     assert out1["image"].shape == (24, 32, 3)
@@ -120,7 +120,7 @@ def test_renderer_shell_modes(scene):
 
 def test_renderer_profile_mode(scene):
     mesh, cam, light = scene
-    cfg = RenderConfig(width=32, height=24, use_pallas=False)
+    cfg = RenderConfig(width=32, height=24, use_kernel=False, bvh_width=2)
     r = Renderer(mesh, cam, light, cfg)
     r.render_frame(profile=True)
     assert r.stats.gbuffer_ms > 0
@@ -133,7 +133,7 @@ def test_soft_shadows_bracket_hard(scene):
     penumbra (some strictly-between values) where hard shadows are binary."""
     mesh, cam, _ = scene
     sun = Light.sun((0.45, 0.8, 0.3), angular_radius_deg=8.0)
-    cfg = RenderConfig(width=48, height=36, spp=8, use_pallas=False)
+    cfg = RenderConfig(width=48, height=36, spp=8, use_kernel=False, bvh_width=2)
     bvh = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices))
     out = render_frame_fn(bvh, mesh, cam, (sun,), jax.random.PRNGKey(1), cfg)
     s = np.asarray(out["shadow"])[0][np.asarray(out["valid"])]
@@ -146,7 +146,7 @@ def test_multi_light_additive(scene):
     l1 = Light.directional((0.45, 0.8, 0.3), intensity=0.7)
     l2 = Light.directional((-0.5, 0.7, -0.2), color=(1.0, 0.8, 0.6),
                            intensity=0.5)
-    cfg = RenderConfig(width=32, height=24, use_pallas=False, ambient=0.0)
+    cfg = RenderConfig(width=32, height=24, use_kernel=False, bvh_width=2, ambient=0.0)
     bvh = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices))
     both = render_frame_fn(bvh, mesh, cam, (l1, l2), jax.random.PRNGKey(0), cfg)
     only1 = render_frame_fn(bvh, mesh, cam, (l1,), jax.random.PRNGKey(0), cfg)
@@ -160,7 +160,7 @@ def test_multi_light_additive(scene):
 def test_accumulation_converges(scene):
     mesh, cam, _ = scene
     sun = Light.sun((0.45, 0.8, 0.3), angular_radius_deg=6.0)
-    cfg = RenderConfig(width=24, height=16, spp=2, use_pallas=False,
+    cfg = RenderConfig(width=24, height=16, spp=2, use_kernel=False, bvh_width=2,
                        accumulate=True)
     r = Renderer(mesh, cam, sun, cfg)
     imgs = [np.asarray(r.render_frame()["image"]) for _ in range(3)]
@@ -180,7 +180,7 @@ def test_point_light_distance_limit():
     mesh = merge_meshes([ground, ceiling])
     cam = Camera.look_at((0, 1.2, 3.5), (0, 0.3, 0), fov_y_deg=50)
     light = Light.point((0, 1.5, 0), intensity=3.0)
-    cfg = RenderConfig(width=32, height=24, use_pallas=False)
+    cfg = RenderConfig(width=32, height=24, use_kernel=False, bvh_width=2)
     bvh = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices))
     out = render_frame_fn(bvh, mesh, cam, (light,), jax.random.PRNGKey(0), cfg)
     valid = np.asarray(out["valid"])
@@ -191,11 +191,11 @@ def test_point_light_distance_limit():
 
 
 def test_renderer_rebuild_mode_fused(scene):
-    """mode="rebuild" with the Pallas wide path runs the fused
+    """mode="rebuild" with the 8-wide accel runs the fused
     build+collapse program with a CACHED pad (no per-frame count sync) and
     must keep producing the same image as a static render."""
     mesh, cam, light = scene
-    cfg = RenderConfig(width=32, height=24, use_pallas=True, leaf_size=4)
+    cfg = RenderConfig(width=32, height=24, use_kernel=False, leaf_size=4)
     r_static = Renderer(mesh, cam, light, cfg, mode="static")
     want = np.asarray(r_static.render_frame()["image"])
     r = Renderer(mesh, cam, light, cfg, mode="rebuild")
@@ -207,13 +207,13 @@ def test_renderer_rebuild_mode_fused(scene):
 
 
 def test_renderer_refit_mode_clip(scene):
-    """mode="refit" with the Pallas wide path runs the fused clip-geometry
+    """mode="refit" with the 8-wide accel runs the fused clip-geometry
     refit (bvh/clip_refit.py): after an animation step the image must match
     a fresh-build static render of the deformed mesh (boxes only cull;
     triangle tests decide, so conservative refit boxes change nothing
     except closest-hit tie order at shared edges)."""
     mesh, cam, light = scene
-    cfg = RenderConfig(width=32, height=24, use_pallas=True, leaf_size=4)
+    cfg = RenderConfig(width=32, height=24, use_kernel=False, leaf_size=4)
     r = Renderer(mesh, cam, light, cfg, mode="refit")
     assert r._nw_pad is not None, "wide path should be active"
     assert r._clip_plan is not None, "clip-refit plan should be active"
@@ -236,11 +236,11 @@ def test_renderer_rebuild_overflow_recovery(scene):
     rebuild path must detect the on-device overflow and re-plan — never
     render from a truncated collapse."""
     mesh, cam, light = scene
-    cfg = RenderConfig(width=32, height=24, use_pallas=True, leaf_size=4)
+    cfg = RenderConfig(width=32, height=24, use_kernel=False, leaf_size=4)
     r = Renderer(mesh, cam, light, cfg, mode="rebuild")
     assert r._nw_pad is not None
     from tpurt.bvh.wide import count_wide
-    # The rebuild-path frontier mode (config default: "area", probe r5e).
+    # The rebuild-path frontier mode (RenderConfig.rebuild_collapse).
     true_count = count_wide(r.bvh, mode=r.config.rebuild_collapse)
     # Force an undersized pad (as if geometry grew), then animate: the
     # rebuild must notice count > pad and recover via a full re-plan.
@@ -259,43 +259,21 @@ def test_renderer_rebuild_overflow_recovery(scene):
                                rtol=1e-5, atol=1e-6)
 
 
-def test_soft_tracer_gated_to_wide_accels(scene, monkeypatch):
-    """The fused soft-shadow kernel exists only for the 8-wide accel;
-    make_soft_tracer must return None (-> XLA scan fallback) for binary/
-    packed/chunked accels even on a compiled backend — returning it there
-    crashed bvh_width=2 area-light frames with the kernel's isinstance
-    assert."""
-    import tpurt.kernels.traverse as T
-    from tpurt.app import make_soft_tracer
-    from tpurt.bvh.wide import build_wide
+def test_rebuild_mode_shade_table_follows_geometry(scene):
+    """Rebuild mode: the shade table rides the per-frame rebuild, and a
+    deformed frame must match a fresh static render of the same
+    geometry."""
     mesh, cam, light = scene
-    bvh = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices),
-                     leaf_size=4)
-    monkeypatch.setattr(T, "_compiled_backend", lambda: True)
-    cfg = RenderConfig(use_pallas=True, bvh_width=2)
-    assert make_soft_tracer(cfg, bvh) is None
-    cfg8 = RenderConfig(use_pallas=True, bvh_width=8)
-    assert make_soft_tracer(cfg8, bvh) is None          # binary accel
-    assert make_soft_tracer(cfg8, build_wide(bvh)) is not None
-
-
-def test_rebuild_mode_attr_tables_follow_geometry(scene):
-    """Rebuild mode with the ray G-buffer: attr tables ride the per-frame
-    sort (tables="attr" trims the unused shade tables), and a deformed
-    frame must match a fresh static render of the same geometry."""
-    import dataclasses
-    from tpurt.scenes import deform
-    mesh, cam, light = scene
-    cfg = RenderConfig(width=64, height=48, use_pallas=True, gbuffer="ray")
+    cfg = RenderConfig(width=64, height=48, use_kernel=False)
     r = Renderer(mesh, cam, light, cfg, mode="rebuild")
-    assert r.attr_tables is not None
     r.set_vertices(deform(mesh, time=0.3))
     img = np.asarray(r.render_frame()["image"])
-    assert r.shade_table is None        # trimmed: strategy never reads it
+    assert r.shade_table.shape[0] == r.accel.tri_id.shape[0]
     m2 = r.mesh
     r_static = Renderer(
         dataclasses.replace(m2, vertices=np.asarray(m2.vertices),
                             normals=np.asarray(m2.normals)),
         cam, light, dataclasses.replace(cfg, sah=False))
     want = np.asarray(r_static.render_frame()["image"])
-    np.testing.assert_array_equal(img, want)
+    diff = np.abs(img - want).max(axis=-1)
+    assert (diff > 2e-2).mean() < 0.01

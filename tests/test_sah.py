@@ -83,12 +83,12 @@ def test_renderer_sah_matches_reference(scene):
     mesh, cam = scene
     light = Light.directional((0.45, 0.8, 0.3))
     r = Renderer(mesh, cam, light,
-                 RenderConfig(width=96, height=64, use_pallas=True))
-    assert r._use_sah and r.config.gbuffer == "ray"
+                 RenderConfig(width=96, height=64, use_kernel=False))
+    assert r._use_sah
     a = np.asarray(r.render_frame()["image"])
     b = np.asarray(Renderer(mesh, cam, light,
                             RenderConfig(width=96, height=64,
-                                         use_pallas=False)
+                                         use_kernel=False, bvh_width=2)
                             ).render_frame()["image"])
     diff = np.abs(a - b).max(axis=-1)
     assert (diff > 2e-2).mean() < 0.01

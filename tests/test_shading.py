@@ -26,8 +26,6 @@ def test_rgb_pack_roundtrip(rng):
     assert np.abs(back - a).max() <= 0.5 / 255 + 1e-6
 
 
-@pytest.mark.slow  # round-5 re-tier: 8 s; the sorted shade table is a
-# non-default strategy (production reads in-kernel attrs)
 def test_table_matches_gather_path(rng):
     mesh = teapot_scene(1200)
     bvh = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices),

@@ -8,6 +8,7 @@ import pytest
 
 from tpurt.app import render_frame_fn
 from tpurt.bvh.lbvh import build_lbvh
+from tpurt.camera import generate_rays
 from tpurt.parallel.tiling import (device_put_replicated, make_tile_mesh,
                                    render_frame_sharded)
 from tpurt.scenes import default_camera_for, teapot_scene
@@ -33,13 +34,14 @@ def test_eight_fake_devices_present():
 
 def test_sharded_matches_single_device(scene):
     mesh, cam, light, bvh = scene
-    cfg = RenderConfig(width=64, height=48, use_pallas=False)
+    cfg = RenderConfig(width=64, height=48, use_kernel=False, bvh_width=2)
     key = jax.random.PRNGKey(0)
     want = np.asarray(render_frame_fn(bvh, mesh, cam, (light,), key,
                                       cfg)["image"])
     dev_mesh = make_tile_mesh()
-    img = render_frame_sharded(bvh, mesh, cam, (light,), key, cfg,
-                               mesh=dev_mesh)
+    img, errors = render_frame_sharded(bvh, mesh, cam, (light,), key, cfg,
+                                       mesh=dev_mesh)
+    assert int(errors) == 0
     got = np.asarray(img)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
@@ -47,12 +49,12 @@ def test_sharded_matches_single_device(scene):
 
 def test_sharded_output_is_row_sharded(scene):
     mesh, cam, light, bvh = scene
-    cfg = RenderConfig(width=64, height=64, use_pallas=False)
+    cfg = RenderConfig(width=64, height=64, use_kernel=False, bvh_width=2)
     dev_mesh = make_tile_mesh()
     mesh_r = device_put_replicated(mesh, dev_mesh)
     bvh_r = device_put_replicated(bvh, dev_mesh)
-    img = render_frame_sharded(bvh_r, mesh_r, cam, (light,),
-                               jax.random.PRNGKey(0), cfg, mesh=dev_mesh)
+    img, _ = render_frame_sharded(bvh_r, mesh_r, cam, (light,),
+                                  jax.random.PRNGKey(0), cfg, mesh=dev_mesh)
     # 64 rows over 8 devices -> each shard holds 8 rows.
     shard_shapes = {s.data.shape for s in img.addressable_shards}
     assert shard_shapes == {(8, 64, 3)}
@@ -60,27 +62,30 @@ def test_sharded_output_is_row_sharded(scene):
 
 def test_sharded_height_not_divisible(scene):
     mesh, cam, light, bvh = scene
-    cfg = RenderConfig(width=32, height=30, use_pallas=False)  # 30 % 8 != 0
-    img = render_frame_sharded(bvh, mesh, cam, (light,),
-                               jax.random.PRNGKey(0), cfg,
-                               mesh=make_tile_mesh())
+    cfg = RenderConfig(width=32, height=30, use_kernel=False, bvh_width=2)  # 30 % 8 != 0
+    img, _ = render_frame_sharded(bvh, mesh, cam, (light,),
+                                  jax.random.PRNGKey(0), cfg,
+                                  mesh=make_tile_mesh())
     assert np.asarray(img).shape == (30, 32, 3)
     assert np.isfinite(np.asarray(img)).all()
 
 
 def test_sharded_pallas_matches_single_device(scene):
-    """The PRODUCTION Pallas traversal kernel under shard_map (interpret
-    mode on the fake CPU mesh) must agree with the unsharded Pallas render —
-    the multi-chip path may not silently require the pure-JAX fallback."""
+    """The 8-wide accel's walk + shade table under shard_map must agree
+    with the unsharded frame (on the card the walk is the CUDA kernel; here
+    its XLA twin)."""
+    from tpurt.bvh.wide import build_wide
+    from tpurt.passes.shading import make_shade_table
     mesh, cam, light, bvh = scene
-    cfg = RenderConfig(width=64, height=48, use_pallas=True, leaf_size=4)
+    wide, st = build_wide(bvh), make_shade_table(bvh, mesh)
+    cfg = RenderConfig(width=64, height=48, use_kernel=False, leaf_size=4)
     key = jax.random.PRNGKey(0)
-    want = np.asarray(render_frame_fn(bvh, mesh, cam, (light,), key,
-                                      cfg)["image"])
-    img = render_frame_sharded(bvh, mesh, cam, (light,), key, cfg,
-                               mesh=make_tile_mesh())
+    want = np.asarray(render_frame_fn(wide, mesh, cam, (light,), key, cfg,
+                                      shade_table=st)["image"])
+    img, errors = render_frame_sharded(wide, mesh, cam, (light,), key, cfg,
+                                       mesh=make_tile_mesh(), shade_table=st)
     got = np.asarray(img)
-    assert got.shape == want.shape
+    assert got.shape == want.shape and int(errors) == 0
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
@@ -91,10 +96,10 @@ def test_sharded_soft_shadows_decorrelated(scene):
     sun = Light.sun((0.45, 0.8, 0.3), angular_radius_deg=20.0)
     # 1 row of pixels per shard, looking at the same geometry: identical
     # shard RNG would produce identical penumbra rows.
-    cfg = RenderConfig(width=64, height=8, spp=1, use_pallas=False)
+    cfg = RenderConfig(width=64, height=8, spp=1, use_kernel=False, bvh_width=2)
     img = np.asarray(render_frame_sharded(bvh, mesh, cam, (sun,),
                                           jax.random.PRNGKey(3), cfg,
-                                          mesh=make_tile_mesh()))
+                                          mesh=make_tile_mesh())[0])
     assert np.isfinite(img).all()
     # Compare each shard's row against every other: some penumbra pixels
     # exist (cone angle 20 deg) and rows must not be bitwise-identical.
@@ -103,71 +108,37 @@ def test_sharded_soft_shadows_decorrelated(scene):
     assert len(distinct) > 1, "shards drew identical shadow jitter"
 
 
-@pytest.mark.parametrize("deferred", [False, True])
-def test_sharded_sponza_scale_production_paths(scene, deferred):
-    """Round-3 (VERDICT r2 weak #8): sharded parity at realistic scale —
-    procedural Sponza interior, two lights, the PRODUCTION Pallas kernels
-    with the raster G-buffer + shade tables under the 8-device mesh (the
-    accel/paths actually used at scale), vs the unsharded frame. Covers
-    both raster record formats (self-shading v2 and deferred z16 v3)."""
-    import jax.numpy as jnp
+def test_sharded_sponza_scale_production_paths(scene):
+    """Sharded parity at realistic scale: procedural Sponza interior, two
+    lights, the 8-wide accel + shade table under the 8-device mesh, vs the
+    unsharded frame."""
     from tpurt.bvh.wide import build_wide
-    from tpurt.passes.shading import make_shade_table, make_shade_table_orig
+    from tpurt.passes.shading import make_shade_table
     from tpurt.scenes import sponza_interior_camera, sponza_scene
     mesh = sponza_scene(8_000)
     cam = sponza_interior_camera()
     lights = (Light.directional((0.25, 0.9, 0.2)),
               Light.directional((-0.4, 0.8, -0.3), color=(0.7, 0.8, 1.0),
                                 intensity=0.5))
-    cfg = RenderConfig(width=320, height=180, use_pallas=True, leaf_size=8,
-                      gbuffer="raster", raster_deferred=deferred)
+    cfg = RenderConfig(width=320, height=180, use_kernel=False, leaf_size=8)
     bvh = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices),
                      leaf_size=8)
     wide = build_wide(bvh)
     st = make_shade_table(bvh, mesh)
-    sto = make_shade_table_orig(mesh)
     key = jax.random.PRNGKey(0)
+    # Both frames trace the same rays: ray generation compiled into two
+    # different programs may round differently and flip edge pixels.
+    rays = generate_rays(cam, cfg.width, cfg.height)
     want = np.asarray(render_frame_fn(wide, mesh, cam, lights, key, cfg,
-                                      shade_table=st,
-                                      shade_table_orig=sto)["image"])
-    img = render_frame_sharded(wide, mesh, cam, lights, key, cfg,
-                               mesh=make_tile_mesh(), shade_table=st,
-                               shade_table_orig=sto)
-    got = np.asarray(img)
-    assert got.shape == want.shape
-    # Per-shard binning can reorder z-fight TIES within a tile, flipping a
-    # handful of coincident-surface pixels (measured 16/172800); everything
-    # else must match to fp tolerance.
-    close = np.isclose(got, want, rtol=1e-4, atol=1e-5)
-    frac_off = 1.0 - close.mean()
-    assert frac_off < 5e-4, f"{frac_off:.5%} pixels differ"
-
-
-def test_sharded_attr_gbuffer_matches_single(scene):
-    """The attribute-tracked closest hit (the production ray G-buffer)
-    under shard_map vs the unsharded attr frame — and vs the shade-table
-    sharded frame (same hit set by construction)."""
-    import jax.numpy as jnp
-    from tpurt.bvh.wide import build_wide
-    from tpurt.passes.shading import make_leaf_attr_rows
-    mesh, cam, light, bvh = scene
-    wide = build_wide(bvh)
-    at = make_leaf_attr_rows(bvh, mesh)
-    cfg = RenderConfig(width=64, height=48, use_pallas=True, leaf_size=4)
-    key = jax.random.PRNGKey(0)
-    want = np.asarray(render_frame_fn(wide, mesh, cam, (light,), key, cfg,
-                                      attr_tables=at)["image"])
-    img = render_frame_sharded(wide, mesh, cam, (light,), key, cfg,
-                               mesh=make_tile_mesh(), attr_tables=at)
-    got = np.asarray(img)
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+                                      shade_table=st, rays=rays)["image"])
+    img, _ = render_frame_sharded(wide, mesh, cam, lights, key, cfg,
+                                  mesh=make_tile_mesh(), shade_table=st,
+                                  rays=rays)
+    np.testing.assert_allclose(np.asarray(img), want, rtol=1e-4, atol=1e-5)
 
 
 def test_pure_jax_sharded_path_is_vma_checked(scene, monkeypatch):
-    """The pure-JAX sharded render must run with check_vma=True (only the
-    interpret-Pallas combination is excluded — tiling.vma_check_enabled)."""
-    from tpurt.parallel import tiling
+    """The sharded render always runs with check_vma=True."""
     mesh, cam, light, bvh = scene
     seen = {}
     real = jax.shard_map
@@ -177,115 +148,9 @@ def test_pure_jax_sharded_path_is_vma_checked(scene, monkeypatch):
         return real(f, **kw) if f is not None else real(**kw)
 
     monkeypatch.setattr(jax, "shard_map", spy)
-    cfg = RenderConfig(width=32, height=16, use_pallas=False)
-    img = render_frame_sharded(bvh, mesh, cam, (light,),
-                               jax.random.PRNGKey(0), cfg,
-                               mesh=make_tile_mesh())
+    cfg = RenderConfig(width=32, height=16, use_kernel=False, bvh_width=2)
+    img, _ = render_frame_sharded(bvh, mesh, cam, (light,),
+                                  jax.random.PRNGKey(0), cfg,
+                                  mesh=make_tile_mesh())
     assert np.isfinite(np.asarray(img)).all()
     assert seen["check_vma"] is True
-    # And the helper itself: interpret-Pallas on CPU is the one exclusion.
-    assert tiling.vma_check_enabled(RenderConfig(use_pallas=False)) is True
-    from tpurt.kernels.traverse import _compiled_backend
-    expect = bool(_compiled_backend())
-    assert tiling.vma_check_enabled(RenderConfig(use_pallas=True)) is expect
-
-
-@pytest.mark.xfail(
-    strict=True,
-    reason="JAX 0.9.0 HLO interpreter does not propagate varying manual "
-           "axes onto kernel-internal values; when this xPASSES after a "
-           "JAX upgrade, delete the interpret exclusion in "
-           "tpurt/parallel/tiling.py vma_check_enabled")
-def test_vma_interpret_pallas_canary():
-    """Minimal repro: ANY interpret-mode pallas_call under a check_vma=True
-    shard_map fails, even with a vma-annotated out_shape."""
-    from jax.experimental import pallas as pl
-    from jax.sharding import Mesh, PartitionSpec as P
-
-    def k(x_ref, o_ref):
-        o_ref[...] = x_ref[...] * 2.0
-
-    def f(x):
-        return pl.pallas_call(
-            k, grid=(x.shape[0] // 8,),
-            in_specs=[pl.BlockSpec((8, 128), lambda i: (i, 0))],
-            out_specs=pl.BlockSpec((8, 128), lambda i: (i, 0)),
-            out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype,
-                                           vma=jax.typeof(x).vma),
-            interpret=True)(x)
-
-    m = Mesh(np.array(jax.devices()), ("tiles",))
-    fn = jax.shard_map(f, mesh=m, in_specs=(P("tiles"),),
-                       out_specs=P("tiles"), check_vma=True)
-    np.asarray(fn(jnp.ones((64, 128))))  # raises ValueError today
-
-
-def test_dryrun_multichip_entry():
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "__graft_entry__", "/root/repo/__graft_entry__.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod.dryrun_multichip(8)
-
-
-def test_entry_compiles():
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "__graft_entry__", "/root/repo/__graft_entry__.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    fn, args = mod.entry()
-    img = jax.jit(fn)(*args)
-    assert img.shape == (256, 256, 3)
-    assert np.isfinite(np.asarray(img)).all()
-
-
-def test_sharded_overflow_flags_surface(scene):
-    """Raster pair-capacity overflow must be reported per shard instead of
-    silently dropping triangles (single-chip Renderer retries on the same
-    flag). Ray-cast paths report all-False; a starved cap reports True."""
-    from tpurt.passes.shading import make_shade_table_orig
-    mesh, cam, light, bvh = scene
-    key = jax.random.PRNGKey(1)
-    # Ray-cast G-buffer: no raster, flags must be all-False.
-    cfg = RenderConfig(width=64, height=64, use_pallas=False)
-    _, ovf = render_frame_sharded(bvh, mesh, cam, (light,), key, cfg,
-                                  mesh=make_tile_mesh(),
-                                  return_overflow=True)
-    ovf = np.asarray(ovf)
-    assert ovf.shape == (8,) and not ovf.any()
-    # Raster G-buffer with a starved pair capacity: flags must fire.
-    sto = make_shade_table_orig(mesh)
-    cfg = RenderConfig(width=64, height=256, use_pallas=True,
-                       gbuffer="raster", raster_cap_pairs=64)
-    _, ovf = render_frame_sharded(bvh, mesh, cam, (light,), key, cfg,
-                                  mesh=make_tile_mesh(),
-                                  shade_table_orig=sto,
-                                  return_overflow=True)
-    assert np.asarray(ovf).any(), "starved raster cap did not report"
-
-
-def test_cli_shard_flag(tmp_path):
-    """--shard N drives the SURVEY §2.4 data-parallel path from the CLI:
-    rows sharded over the fake 8-device mesh, PNG written, and the image
-    matches the unsharded CLI render of the same scene/seed."""
-    from tpurt.cli import main
-    from tpurt.io.image import read_png
-    a = str(tmp_path / "sharded.png")
-    b = str(tmp_path / "single.png")
-    base = ["--scene", "soup200", "--width", "64", "--height", "48",
-            "--no-pallas", "--no-sah", "--seed", "0"]
-    assert main(base + ["--shard", "8", "--out", a]) == 0
-    assert main(base + ["--out", b]) == 0
-    ia, ib = read_png(a), read_png(b)
-    assert ia.shape == ib.shape == (48, 64, 3)
-    np.testing.assert_allclose(ia.astype(np.float32),
-                               ib.astype(np.float32), atol=1.5)
-
-
-def test_cli_shard_rejects_nonstatic():
-    from tpurt.cli import main
-    with pytest.raises(SystemExit):
-        main(["--scene", "soup200", "--width", "32", "--height", "32",
-              "--no-pallas", "--shard", "8", "--mode", "refit"])

@@ -56,8 +56,7 @@ def test_unsort_inverts(rng):
                                   np.asarray(vals))
 
 
-@pytest.mark.slow  # round-5 re-tier: ray sorting is a retired-on-
-# measurement variant (NOTES_ROUND3); 9 s of interpret walk
+@pytest.mark.slow  # ray sorting is an off-by-default variant
 def test_sorted_tracer_matches_unsorted(rng):
     mesh = teapot_scene(1200)
     bvh = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices))
@@ -67,16 +66,15 @@ def test_sorted_tracer_matches_unsorted(rng):
 
     def raw_any(so, sd, stm):
         _, tid = traverse(bvh, so, sd, t_max=stm, any_hit=True)
-        return tid >= 0
+        return tid >= 0, jnp.int32(0)
 
-    want = np.asarray(raw_any(o, d, tm)) & (np.asarray(tm) > 0)
+    want = np.asarray(raw_any(o, d, tm)[0]) & (np.asarray(tm) > 0)
     tracer = make_sorted_tracer(raw_any, bvh.root_min, bvh.root_max)
-    got = np.asarray(tracer(o, d, tm))
+    got = np.asarray(tracer(o, d, tm)[0])
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.slow  # round-5 re-tier: sort=True is a retired-on-
-# measurement config (NOTES_ROUND3); ~16 s of interpret walk
+@pytest.mark.slow  # ray sorting is an off-by-default variant
 def test_pipeline_sort_rays_config(rng):
     """Full frame with cfg.sort_rays must equal the unsorted frame."""
     mesh = teapot_scene(1200)
@@ -85,8 +83,9 @@ def test_pipeline_sort_rays_config(rng):
               Light.directional((-0.4, 0.7, 0.1), intensity=0.5))
     bvh = build_lbvh(jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices))
     key = jax.random.PRNGKey(0)
-    base = RenderConfig(width=64, height=48, use_pallas=False)
-    srt = RenderConfig(width=64, height=48, use_pallas=False, sort_rays=True)
+    base = RenderConfig(width=64, height=48, use_kernel=False, bvh_width=2)
+    srt = RenderConfig(width=64, height=48, use_kernel=False, bvh_width=2,
+                       sort_rays=True)
     a = render_frame_fn(bvh, mesh, cam, lights, key, base)
     b = render_frame_fn(bvh, mesh, cam, lights, key, srt)
     np.testing.assert_allclose(np.asarray(a["image"]), np.asarray(b["image"]),

@@ -115,7 +115,7 @@ def test_textured_render_end_to_end():
     cam = Camera.look_at((0.5, 0.5, 2.0), (0.5, 0.5, 0.0),
                          fov_y_deg=40.0, znear=0.01, zfar=10.0)
     light = Light.directional((0.2, 0.3, 1.0))
-    cfg = RenderConfig(width=64, height=64, use_pallas=False, leaf_size=4)
+    cfg = RenderConfig(width=64, height=64, use_kernel=False, leaf_size=4)
     out = Renderer(mesh, cam, light, cfg).render_frame()
     alb = np.asarray(out["albedo"])
     valid = np.asarray(out["valid"])

@@ -1,9 +1,9 @@
-"""tpurt — TPU-native ray-traced shadows renderer.
+"""tpurt — ray-traced shadows renderer in JAX.
 
-A from-scratch JAX/Pallas rebuild of the capabilities of
-kayru/RayTracedShadows (C++/Vulkan): OBJ scene loading, primary-visibility
-G-buffer, LBVH build/refit fully on device, and a wavefront Pallas BVH
-traversal kernel for per-pixel shadow rays. See SURVEY.md / BASELINE.md.
+A rebuild of the capabilities of kayru/RayTracedShadows (C++/Vulkan): OBJ
+scene loading, primary-visibility G-buffer, LBVH build/refit fully on
+device, and a CUDA BVH traversal kernel (called through jax.ffi, with a
+plain-XLA twin) for per-pixel rays. See README.md / BASELINE.md.
 """
 
 from .types import (Camera, Light, Mesh, RenderConfig,

@@ -1,6 +1,6 @@
 """Renderer: the application shell / frame loop.
 
-TPU-native equivalent of ``class RayTracedShadowsApp`` in
+The equivalent of ``class RayTracedShadowsApp`` in
 Source/RayTracedShadows.cpp [RECALL]: owns the scene resources (device
 arrays), builds the acceleration structure, and records the three passes per
 frame — except here the "passes" are one jitted function and the "resources"
@@ -12,11 +12,16 @@ Mode axis (BASELINE configs):
   rebuild — full LBVH rebuild every frame (config 2)
   refit   — per-frame AABB refit for deforming meshes (config 4), with an
             automatic SAH-degradation rebuild policy
+
+Routes: ``RenderConfig.bvh_width`` picks the accel (8-wide rows or the
+binary LBVH) and ``RenderConfig.use_kernel`` picks who walks it — the CUDA
+kernel (kernels/traverse.py, 8-wide only) or plain XLA (bvh/traverse.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from functools import partial
 from typing import Dict, Optional, Sequence, Union
 
@@ -25,181 +30,102 @@ import jax.numpy as jnp
 import numpy as np
 
 from .bvh.lbvh import LBVH, build_lbvh, refit_lbvh, sah_cost
-from .bvh.wide import build_wide, widen_lbvh, wide_count_device
+from .bvh.wide import WideBVH, order_children_for_point, widen_lbvh, \
+    wide_count_device
 from .bvh import traverse as jax_traverse
-from .passes.shading import (make_leaf_attr_rows, make_shade_table,
-                             make_shade_table_orig)
+from .passes.shading import make_shade_table
 from .passes.composite import accumulate, composite_pass
 from .passes.gbuffer import gbuffer_pass
 from .passes.shadow import shadow_pass
-from .types import Camera, Light, Mesh, RenderConfig
+from .types import (LIGHT_AREA_CONE, LIGHT_POINT, Camera, Light, Mesh,
+                    RenderConfig)
 from .utils.metrics import FrameStats, Timer, mrays_per_s
 
 
 def make_tracers(cfg: RenderConfig):
-    """(trace_closest, trace_any) as functions of (bvh, rays...).
+    """(trace_closest, trace_any) as functions of (accel, rays...).
 
-    use_pallas selects the Pallas packet kernel; the pure-JAX path is the
-    always-available fallback (the analogue of the reference's compute
-    fallback next to the NV-RT pipeline, SURVEY.md §3.5).
+    trace_closest(accel, o, d) -> (t, tri_id | None, sorted index | None,
+    errors); trace_any(accel, o, d, t_max) -> (occluded, errors). ``errors``
+    counts walks that overflowed their stack or hit the iteration cap. A
+    ``WideBVH`` is walked by the CUDA kernel (cfg.use_kernel) or by its
+    plain XLA twin, both returning the sorted index; the binary LBVH has
+    the XLA walk only, returning the original triangle id.
     """
-    if cfg.use_pallas:
-        from .bvh.chunked import (ChunkedAccel, trace_any_chunked,
-                                  trace_closest_chunked)
-        from .kernels.traverse import trace_any_pallas, trace_closest_pallas
+    if cfg.use_kernel:
+        from .kernels.traverse import trace_any_cuda, trace_closest_cuda
 
-        def closest(bvh, o, d):
-            if isinstance(bvh, ChunkedAccel):
-                return trace_closest_chunked(bvh, o, d)
-            return trace_closest_pallas(bvh, o, d, cfg=cfg)
+    def check_binary(accel):
+        if cfg.use_kernel:
+            raise ValueError("the CUDA kernel walks the 8-wide accel only "
+                             "(bvh_width=8); binary accels take the plain "
+                             "route (use_kernel=False)")
 
-        def any_(bvh, o, d, t_max):
-            if isinstance(bvh, ChunkedAccel):
-                return trace_any_chunked(bvh, o, d, t_max)
-            return trace_any_pallas(bvh, o, d, t_max, cfg=cfg)
-    else:
-        def closest(bvh, o, d):
-            return jax_traverse.traverse(bvh, o, d, t_min=0.0, any_hit=False)
+    def closest(accel, o, d):
+        if isinstance(accel, WideBVH):
+            fn = trace_closest_cuda if cfg.use_kernel \
+                else jax_traverse.traverse_wide
+            t, sidx, errors = fn(accel, o, d)
+            return t, None, sidx, errors
+        check_binary(accel)
+        t, tid = jax_traverse.traverse(accel, o, d, t_min=0.0, any_hit=False)
+        return t, tid, None, jnp.int32(0)
 
-        def any_(bvh, o, d, t_max):
-            _, tid = jax_traverse.traverse(bvh, o, d, t_min=0.0, t_max=t_max,
-                                           any_hit=True)
-            return tid >= 0
+    def any_(accel, o, d, t_max):
+        if isinstance(accel, WideBVH):
+            if cfg.use_kernel:
+                return trace_any_cuda(accel, o, d, t_max)
+            _, sidx, errors = jax_traverse.traverse_wide(
+                accel, o, d, t_max=t_max, any_hit=True)
+            return sidx >= 0, errors
+        check_binary(accel)
+        _, tid = jax_traverse.traverse(accel, o, d, t_min=0.0, t_max=t_max,
+                                       any_hit=True)
+        return tid >= 0, jnp.int32(0)
 
     if cfg.sort_rays:
         from .passes.sort import make_sorted_tracer
 
         raw_any = any_
 
-        def any_(bvh, o, d, t_max):  # noqa: F811 - deliberate wrap
+        def any_(accel, o, d, t_max):  # noqa: F811 - deliberate wrap
             sorted_tracer = make_sorted_tracer(
-                lambda so, sd, stm: raw_any(bvh, so, sd, stm),
-                bvh.root_min, bvh.root_max)
+                lambda so, sd, stm: raw_any(accel, so, sd, stm),
+                accel.root_min, accel.root_max)
             return sorted_tracer(o, d, t_max)
 
     return closest, any_
 
 
-def make_soft_tracer(cfg: RenderConfig, bvh):
-    """Fused in-kernel cone sampling for area-light soft shadows
-    (kernels/traverse.trace_any_soft_pallas), or None where the scan-based
-    XLA path should run instead. The kernel exists only for the 8-wide
-    accel, so anything else — pure-JAX configs, binary/packed BVHs
-    (bvh_width=2), chunked (over-VMEM) accels — falls back, as do
-    interpret-mode CPU runs (the TPU-interpret PRNG is a zero stream —
-    silently degrading penumbrae to hard shadows is worse than the slower
-    exact path)."""
-    from .bvh.wide import WideBVH
-    from .kernels.traverse import _compiled_backend, trace_any_soft_pallas
-    if not cfg.use_pallas or not _compiled_backend() \
-            or not isinstance(bvh, WideBVH):
-        return None
-
-    def soft(origins, valid, axis_dir, cone_cos, spp, seed):
-        return trace_any_soft_pallas(bvh, origins, valid, axis_dir,
-                                     cone_cos, spp, seed)
-
-    return soft
-
-
-def make_point_soft_tracer(cfg: RenderConfig, bvh):
-    """Fused in-kernel jittered-disk sampling for point-light penumbrae
-    (kernels/traverse.trace_any_point_soft_pallas), or None where the
-    scan-based XLA path should run instead — same gating as
-    make_soft_tracer (8-wide accel, compiled backend only)."""
-    from .bvh.wide import WideBVH
-    from .kernels.traverse import (_compiled_backend,
-                                   trace_any_point_soft_pallas)
-    if not cfg.use_pallas or not _compiled_backend() \
-            or not isinstance(bvh, WideBVH):
-        return None
-
-    def soft(origins, valid, light_pos, radius, spp, seed):
-        return trace_any_point_soft_pallas(bvh, origins, valid, light_pos,
-                                           radius, spp, seed)
-
-    return soft
-
-
-@partial(jax.jit, static_argnames=("leaf_size", "nw_pad", "tables",
-                                   "textured", "top_sah", "collapse",
+@partial(jax.jit, static_argnames=("leaf_size", "nw_pad", "collapse",
                                    "split_blocks"))
 def _rebuild_fused(vertices, indices, mesh, leaf_size: int, nw_pad: int,
-                   tables: str = "st", textured: bool = False,
-                   top_sah: bool = False, collapse: str = "fixed",
-                   split_blocks: int = 0):
-    """Config-2 hot path: LBVH build + 8-wide collapse + shading tables as
+                   collapse: str = "fixed", split_blocks: int = 0):
+    """Config-2 hot path: LBVH build + 8-wide collapse + shading table as
     ONE device program — no host syncs. The wide-node count rides along as
     a device scalar so callers can check pad overflow opportunistically
     (XLA CSE merges it with the identical mask inside widen_lbvh).
 
-    tables — which shading tables this frame strategy actually reads
-    (probe r3ac: tri_id-keyed table gathers serialize after the sort and
-    cost ~16 ms; unused tables are pure waste):
-      "attr": attr rows only, riding the Morton sort as payload columns
-              (~+0.1 ms each) — the ray + in-kernel-attrs strategy.
-      "sto":  original-order table only (raster G-buffer; ~+0.2 ms).
-      "st":   sorted + original shade tables (ray without attr tracking).
-    """
-    extra = ()
-    from .passes.shading import (attr_payload_columns,
-                                 leaf_attr_rows_from_sorted)
-    if tables == "attr":
-        extra = attr_payload_columns(mesh)
-    # Depths only feed the fixed-cut mask; the area collapse kernel does
-    # not read them (skipping saves the build kernel's reverse-seq sweep).
-    want_depth = collapse != "area"
-    r = build_lbvh(vertices, indices, leaf_size=leaf_size, boxes="defer",
-                   extra_payload=extra, want_depth=want_depth,
-                   top_sah=top_sah, split_blocks=split_blocks)
-    depth = None
-    if extra and want_depth:
-        bvh, extras, depth = r
-    elif extra:
-        bvh, extras = r
-    elif want_depth:
-        (bvh, depth), extras = r, ()
-    else:
-        bvh, extras = r, ()
-    # Collapse frontier: "fixed" = depth-3 cut (cheapest; the kernel
-    # builder's depth output replaces the pointer-doubling pass, None on
-    # search-builder fallbacks — widen recomputes depths then). "area" =
-    # the SAH-greedy collapse via the scalar-core kernel
-    # (wide.widen_area_kernel — the XLA area mode's 64-sweep reachability
-    # is a once-per-scene cost this per-frame path cannot afford; probe
-    # r4f counts the area frontier ~30% fewer traversal pops on Morton
-    # trees). The setup-time count must use the same mode.
-    if collapse == "area":
-        from .bvh.wide import widen_area_kernel
-        wide, cnt = widen_area_kernel(bvh, nw_pad)
-    else:
-        wide = widen_lbvh(bvh, nw_pad=nw_pad, mode="fixed", depths=depth)
-        cnt = None
-    st = make_shade_table(bvh, mesh) if tables == "st" else None
-    st_orig = make_shade_table_orig(mesh) if tables in ("st", "sto") \
-        else None
-    at = leaf_attr_rows_from_sorted(
-        extras, bvh.tri_id, bvh.num_blocks, leaf_size,
-        textured) if tables == "attr" else None
-    if cnt is None:
-        cnt = wide_count_device(bvh, mode="fixed", depths=depth)
-    return bvh, wide, st, st_orig, at, cnt
+    collapse: "fixed" = depth-3 cut (only the wide nodes' boxes are ever
+    needed, so the build defers node boxes); "area" = SAH-greedy frontier
+    (ranks every binary node by area, so the build materializes them)."""
+    bvh = build_lbvh(vertices, indices, leaf_size=leaf_size,
+                     boxes="full" if collapse == "area" else "defer",
+                     split_blocks=split_blocks)
+    wide = widen_lbvh(bvh, nw_pad=nw_pad, mode=collapse)
+    cnt = wide_count_device(bvh, mode=collapse)
+    return bvh, wide, make_shade_table(bvh, mesh), cnt
 
 
-@partial(jax.jit, static_argnames=("attrs",))
-def _clip_refit_fused(plan, bvh, vertices, mesh, attrs: bool = False):
+@jax.jit
+def _clip_refit_fused(plan, bvh, vertices, mesh):
     """Config-4 hot path: clip-geometry SBVH refit + wide assembly +
-    shading tables as ONE device program (bvh/clip_refit.py). Preserves
-    the static tree's spatial-split quality under deformation — measured
-    6.2 ms vs 17.5 ms for the full-triangle refit+widen on Sponza-class
-    scenes, with the refit tree tracing at full static speed."""
+    shading table as ONE device program (bvh/clip_refit.py). Preserves the
+    static tree's spatial-split quality under deformation."""
     from .bvh.clip_refit import refit_sbvh_wide
     wide, refit = refit_sbvh_wide(plan, bvh, None, None, None,
                                   vertices=vertices)
-    st = make_shade_table(refit, mesh)
-    st_orig = make_shade_table_orig(mesh)
-    at = make_leaf_attr_rows(refit, mesh) if attrs else None
-    return refit, wide, st, st_orig, at
+    return refit, wide, make_shade_table(refit, mesh)
 
 
 def _sah_available() -> bool:
@@ -207,423 +133,79 @@ def _sah_available() -> bool:
     return native.available()
 
 
-def use_raster_gbuffer(cfg: RenderConfig) -> bool:
-    """Primary-visibility strategy resolution (see RenderConfig.gbuffer)."""
-    if cfg.gbuffer == "raster":
-        return True
-    if cfg.gbuffer == "ray":
-        return False
-    from .kernels.traverse import _compiled_backend
-    return cfg.use_pallas and _compiled_backend()
+def gbuffer_production(bvh, mesh: Mesh, cam: Camera, cfg: RenderConfig,
+                       shade_table=None, rays=None) -> Dict[str, jnp.ndarray]:
+    """The primary-visibility pass for this config/accel — the single
+    source of truth used by the frame (render_frame_fn), the sharded frame
+    (parallel/tiling.py) and profile mode (Renderer._profile_passes).
 
-
-def gbuffer_production(bvh: LBVH, mesh: Mesh, cam: Camera,
-                       cfg: RenderConfig, shade_table=None,
-                       shade_table_orig=None,
-                       attr_tables=None) -> Dict[str, jnp.ndarray]:
-    """The production primary-visibility pass for this config/accel —
-    the single source of truth used by BOTH the fused frame
-    (render_frame_fn) and profile mode (Renderer._profile_passes), so the
-    profiled numbers always measure the code the frame actually runs."""
+    rays: optional precomputed (origins, dirs) — a shard passes its band."""
     trace_closest, _ = make_tracers(cfg)
-    from .bvh.wide import WideBVH, order_children_for_point
-    if use_raster_gbuffer(cfg) and shade_table_orig is not None:
-        from .passes.gbuffer import gbuffer_raster_pass
-        gbuf = gbuffer_raster_pass(
-            mesh, cam, cfg.width, cfg.height, shade_table_orig,
-            cap_pairs=cfg.raster_cap_pairs or None,
-            deferred=cfg.raster_deferred)
-    else:
-        from .bvh.chunked import ChunkedAccel
-        gb_accel = bvh
-        if isinstance(bvh, WideBVH) and cfg.order_children:
-            # Near-first child ordering w.r.t. the camera: primary-ray
-            # packets pop near children first so per-lane best_t culls the
-            # far ones. Gated by cfg.order_children: on fused frames the
-            # ordered accel also serves the shadow phase (see types.py).
-            gb_accel = order_children_for_point(bvh, cam.position)
-        elif isinstance(bvh, ChunkedAccel) and cfg.order_children:
-            gb_accel = dataclasses.replace(bvh, chunks=tuple(
-                order_children_for_point(c, cam.position)
-                for c in bvh.chunks))
-        if attr_tables is not None and cfg.use_pallas \
-                and isinstance(bvh, WideBVH):
-            # Attribute-tracked closest hit: the kernel selects the
-            # winner's shading attributes in registers, so the pass does
-            # ZERO per-pixel gathers — measured 13.5 vs 27.0 ms for the
-            # shade-table gather path at 1080p (probe r3aa).
-            from .passes.gbuffer import gbuffer_attr_pass
-            gbuf = gbuffer_attr_pass(gb_accel, attr_tables, mesh, cam,
-                                     cfg.width, cfg.height)
-            return _apply_mesh_textures(gbuf, mesh)
-        if shade_table is not None and cfg.use_pallas and \
-                not isinstance(bvh, ChunkedAccel):
-            from .kernels.traverse import trace_closest_pallas
-
-            def tracer(o, d):
-                return trace_closest_pallas(gb_accel, o, d, cfg=cfg,
-                                            return_sorted=True,
-                                            seeded=cfg.seeded_gbuffer,
-                                            gather_tri_id=False)
-        else:
-            def tracer(o, d):
-                return trace_closest(gb_accel, o, d)
-        gbuf = gbuffer_pass(tracer, mesh, cam, cfg.width, cfg.height,
-                            shade_table=shade_table if cfg.use_pallas
-                            else None)
-    gbuf = _apply_mesh_textures(gbuf, mesh)
-    return gbuf
-
-
-def shadow_production(bvh: LBVH, gbuf: Dict[str, jnp.ndarray], light: Light,
-                      key: jax.Array, cfg: RenderConfig) -> jnp.ndarray:
-    """The production shadow pass (fused soft kernel where available) —
-    shared by render_frame_fn and profile mode, see gbuffer_production.
-
-    NB: ordering children along the light direction was measured on-TPU
-    (round 2) at neutral-to-harmful for the any-hit trace (+dir doubled
-    the time; -dir was within noise of unordered), so the shadow accel is
-    used as-is. order_children_for_direction remains available for scenes
-    where it pays."""
-    _, trace_any = make_tracers(cfg)
-    return shadow_pass(
-        lambda o, d, tm: trace_any(bvh, o, d, tm),
-        gbuf, light, cfg.spp, key, cfg.shadow_bias,
-        scene_bounds=(bvh.root_min, bvh.root_max),
-        trace_soft=make_soft_tracer(cfg, bvh),
-        trace_soft_point=make_point_soft_tracer(cfg, bvh))
-
-
-def fused_shadow_applicable(cfg: RenderConfig, bvh, lights) -> bool:
-    """Does the fused primary+shadow kernel path apply? Ray-cast G-buffer
-    on the batched 8-wide Pallas accel with a directional light 0
-    (RenderConfig.fused_shadow; kernels/traverse.py
-    trace_closest_shadow_pallas)."""
-    from .bvh.wide import WideBVH
-    from .types import LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT
-    if not (cfg.fused_shadow and cfg.use_pallas
-            and not use_raster_gbuffer(cfg) and isinstance(bvh, WideBVH)
-            and len(lights) > 0):
-        return False
-    kind = lights[0].kind
-    # Directional lights are always hard; point lights are hard at spp=1
-    # (shadow_pass only jitters POINT/AREA when spp > 1); area-cone and
-    # point lights take the fused SOFT kernels (in-kernel cone/disk
-    # sampling) at spp > 1 — but only on a compiled backend: the
-    # interpret-mode PRNG is a zero stream, and silently degrading
-    # penumbrae to hard shadows is worse than the slower exact scan path
-    # (same policy as make_soft_tracer).
-    from .kernels.traverse import _compiled_backend
-    if kind in (LIGHT_AREA_CONE, LIGHT_POINT):
-        return cfg.spp == 1 or _compiled_backend()
-    return kind == LIGHT_DIRECTIONAL
-
-
-def fused_multi_applicable(cfg: RenderConfig, bvh, lights) -> bool:
-    """Does the fused primary + N-hard-shadow kernel path apply? Every
-    light must be hard (directional at any spp; point/area-cone at
-    spp=1 — the same set shadow_pass traces unjittered), on the batched
-    8-wide ray-cast G-buffer path (trace_closest_multi_shadow_pallas)."""
-    from .bvh.wide import WideBVH
-    from .types import LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT
-    if not (cfg.fused_shadow and cfg.use_pallas
-            and not use_raster_gbuffer(cfg) and isinstance(bvh, WideBVH)
-            and len(lights) >= 2):
-        return False
-    for l in lights:
-        if l.kind == LIGHT_DIRECTIONAL:
-            continue
-        if l.kind in (LIGHT_POINT, LIGHT_AREA_CONE) and cfg.spp == 1:
-            continue
-        return False
-    return True
-
-
-def _kernel_seed(key) -> jnp.ndarray:
-    """int32 PRNG seed for the in-kernel sampler from a JAX key: any 32
-    bits decorrelate frames/lights (the kernel further folds in grid step
-    and packet). Handles both typed and legacy uint32-array keys."""
-    kd = key if jnp.issubdtype(key.dtype, jnp.integer) \
-        else jax.random.key_data(key)
-    return kd.ravel()[-1].astype(jnp.int32)
-
-
-def _apply_mesh_textures(gbuf, mesh):
-    """Texture sampling as a G-buffer post-pass on (tri_id, position) —
-    every primary-visibility strategy goes through it."""
+    gb_accel = bvh
+    if isinstance(bvh, WideBVH) and cfg.order_children:
+        # Near-first child ordering w.r.t. the camera: primary rays pop
+        # near children first so best_t culls the far ones.
+        gb_accel = order_children_for_point(bvh, cam.position)
+    height = rays[0].shape[0] if rays is not None else cfg.height
+    gbuf = gbuffer_pass(lambda o, d: trace_closest(gb_accel, o, d), mesh,
+                        cam, cfg.width, height, shade_table=shade_table,
+                        rays=rays)
     if mesh.textured:
         from .passes.texture import apply_textures
         gbuf = {**gbuf, "albedo": apply_textures(mesh, gbuf)}
     return gbuf
 
 
-def fused_soft_multi_applicable(cfg: RenderConfig, bvh, lights) -> bool:
-    """Does the mixed fused path apply? Light 0 soft (area-cone or point
-    at spp>1, compiled backend only — the interpret PRNG is a zero
-    stream) with every extra light hard directional
-    (trace_closest_soft_multi_shadow_pallas)."""
-    from .bvh.wide import WideBVH
-    from .types import LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT
-    if not (cfg.fused_shadow and cfg.use_pallas and cfg.spp > 1
-            and not use_raster_gbuffer(cfg) and isinstance(bvh, WideBVH)
-            and len(lights) >= 2):
-        return False
-    if lights[0].kind not in (LIGHT_AREA_CONE, LIGHT_POINT):
-        return False
-    if any(l.kind != LIGHT_DIRECTIONAL for l in lights[1:]):
-        return False
-    from .kernels.traverse import _compiled_backend
-    return _compiled_backend()
-
-
-def gbuffer_soft_multi_shadow_fused_production(bvh, mesh: Mesh, cam: Camera,
-                                               cfg: RenderConfig, lights,
-                                               shade_table, key=None,
-                                               rays=None, attr_tables=None):
-    """Fused twin of gbuffer_production + EVERY light's shadow_production
-    for a soft light 0 with hard directional extras: one kernel returns
-    the hit set, light-0's sampled occlusion counts, and the extras'
-    occlusion bitmask. Returns (gbuf, [visibility per light]).
-    attr_tables: zero-gather fused frame."""
-    from .bvh.wide import order_children_for_point
-    from .kernels.traverse import trace_closest_soft_multi_shadow_pallas
-    from .types import LIGHT_POINT
-    gb_accel = order_children_for_point(bvh, cam.position) \
-        if cfg.order_children else bvh
-    l0 = lights[0]
-    if l0.kind == LIGHT_POINT:
-        light0 = ("disk", jnp.asarray(l0.position, jnp.float32),
-                  jnp.asarray(l0.radius, jnp.float32))
-    else:
-        light0 = ("cone", jnp.asarray(l0.direction, jnp.float32),
-                  jnp.cos(l0.angular_radius))
-    extra_dirs = [jnp.asarray(l.direction, jnp.float32)
-                  for l in lights[1:]]
-    if key is None:
-        key = jax.random.PRNGKey(cfg.seed)
-    seed = _kernel_seed(key)
-    vis_out = {}
-
-    height = rays[0].shape[0] if rays is not None else cfg.height
-    if attr_tables is not None:
-        def trace_ch(o, d):
-            ch, counts, occm = trace_closest_soft_multi_shadow_pallas(
-                gb_accel, o, d, light0, extra_dirs, cfg.spp, seed,
-                cfg.shadow_bias, attr_tables=attr_tables,
-                textured=mesh.textured)
-            vis_out["vis0"] = 1.0 - counts.astype(jnp.float32) / cfg.spp
-            vis_out["occm"] = occm
-            return ch
-        gbuf = _fused_attr_gbuf(trace_ch, mesh, cam, cfg, rays, height)
-    else:
-        def tracer(o, d):
-            t, sidx, counts, occm = trace_closest_soft_multi_shadow_pallas(
-                gb_accel, o, d, light0, extra_dirs, cfg.spp, seed,
-                cfg.shadow_bias)
-            vis_out["vis0"] = 1.0 - counts.astype(jnp.float32) / cfg.spp
-            vis_out["occm"] = occm
-            return t, None, sidx
-
-        gbuf = gbuffer_pass(tracer, mesh, cam, cfg.width, height,
-                            shade_table=shade_table, rays=rays)
-    gbuf = _apply_mesh_textures(gbuf, mesh)
-    vises = [jnp.where(gbuf["valid"], vis_out["vis0"], 1.0)]
-    occm = vis_out["occm"]
-    for li in range(1, len(lights)):
-        v = jnp.where(((occm >> (li - 1)) & 1) > 0, 0.0, 1.0)
-        vises.append(jnp.where(gbuf["valid"], v, 1.0))
-    return gbuf, vises
-
-
-def _fused_attr_gbuf(trace_ch, mesh, cam, cfg, rays, height):
-    """Shared attr-mode dispatch for the fused productions: materialize
-    the rays (a shard passes its band), run the fused kernel thunk
-    (returns the attr channel dict), decode to a full G-buffer."""
-    from .camera import generate_rays
-    from .passes.gbuffer import gbuf_from_attr_channels
-    origins, dirs = rays if rays is not None else \
-        generate_rays(cam, cfg.width, height)
-    ch = trace_ch(origins, dirs)
-    return gbuf_from_attr_channels(ch, origins, dirs, cam, mesh)
-
-
-def gbuffer_multi_shadow_fused_production(bvh, mesh: Mesh, cam: Camera,
-                                          cfg: RenderConfig, lights,
-                                          shade_table, rays=None,
-                                          attr_tables=None):
-    """Fused twin of gbuffer_production + EVERY light's shadow_production
-    for all-hard light sets: one kernel returns the hit set and a
-    per-light occlusion bitmask, so an N-light frame pays a single
-    dispatch with no per-light raygen or packet re-layout. Returns
-    (gbuf, [visibility per light]).
-
-    rays: optional precomputed (origins, dirs) row-band for the sharded
-    path (parallel/tiling.py _local_frame). attr_tables: zero-gather
-    fused frame (the kernel also tracks the winner's attributes)."""
-    from .bvh.wide import order_children_for_point
-    from .kernels.traverse import trace_closest_multi_shadow_pallas
-    from .types import LIGHT_POINT
-    gb_accel = order_children_for_point(bvh, cam.position) \
-        if cfg.order_children else bvh
-    spec = []
-    for l in lights:
-        if l.kind == LIGHT_POINT:
-            spec.append((None, jnp.asarray(l.position, jnp.float32)))
-        else:
-            spec.append((jnp.asarray(l.direction, jnp.float32), None))
-    vis_out = {}
-
-    height = rays[0].shape[0] if rays is not None else cfg.height
-    if attr_tables is not None:
-        def trace_ch(o, d):
-            ch, occm = trace_closest_multi_shadow_pallas(
-                gb_accel, o, d, spec, cfg.shadow_bias,
-                attr_tables=attr_tables, textured=mesh.textured)
-            vis_out["occm"] = occm
-            return ch
-        gbuf = _fused_attr_gbuf(trace_ch, mesh, cam, cfg, rays, height)
-    else:
-        def tracer(o, d):
-            t, sidx, occm = trace_closest_multi_shadow_pallas(
-                gb_accel, o, d, spec, cfg.shadow_bias)
-            vis_out["occm"] = occm
-            return t, None, sidx
-
-        gbuf = gbuffer_pass(tracer, mesh, cam, cfg.width, height,
-                            shade_table=shade_table, rays=rays)
-    gbuf = _apply_mesh_textures(gbuf, mesh)
-    occm = vis_out["occm"]
-    vises = []
-    for li in range(len(lights)):
-        v = jnp.where(((occm >> li) & 1) > 0, 0.0, 1.0)
-        vises.append(jnp.where(gbuf["valid"], v, 1.0))
-    return gbuf, vises
-
-
-def gbuffer_shadow_fused_production(bvh, mesh: Mesh, cam: Camera,
-                                    cfg: RenderConfig, light: Light,
-                                    shade_table, key=None, rays=None,
-                                    attr_tables=None):
-    """Fused twin of gbuffer_production + shadow_production for light 0:
-    ONE kernel returns the hit set AND its shadow visibility (hard
-    directional/point, in-kernel cone-sampled soft for area lights, or
-    in-kernel disk-sampled penumbra for point lights at spp>1), so the
-    frame pays no shadow raygen, no packet re-layout, and one dispatch
-    less. Returns (gbuf, visibility).
-
-    rays: optional precomputed (origins, dirs) row-band — the sharded
-    path (parallel/tiling.py _local_frame) renders its shard through the
-    same fused kernel. attr_tables: the fused kernel additionally tracks
-    the winner's shading attributes, eliminating the shade-table gather
-    (the zero-gather fused frame)."""
-    from .bvh.wide import order_children_for_point
-    from .kernels.traverse import (trace_closest_point_soft_shadow_pallas,
-                                   trace_closest_shadow_pallas,
-                                   trace_closest_soft_shadow_pallas)
-    from .types import LIGHT_AREA_CONE, LIGHT_POINT
-    gb_accel = order_children_for_point(bvh, cam.position) \
-        if cfg.order_children else bvh
-    soft = light.kind == LIGHT_AREA_CONE and cfg.spp > 1
-    psoft = light.kind == LIGHT_POINT and cfg.spp > 1
-    lpos = (jnp.asarray(light.position, jnp.float32)
-            if light.kind == LIGHT_POINT else None)
-    vis_out = {}
-    if (soft or psoft) and key is None:
-        key = jax.random.PRNGKey(cfg.seed)
-    seed = _kernel_seed(key) if (soft or psoft) else None
-
-    def trace(o, d, at):
-        """Run the applicable fused kernel. Returns (t, sidx, None) in
-        plain mode or (channel dict,) in attr mode; stashes visibility."""
-        if psoft:
-            res = trace_closest_point_soft_shadow_pallas(
-                gb_accel, o, d, lpos,
-                jnp.asarray(light.radius, jnp.float32), cfg.spp, seed,
-                cfg.shadow_bias, attr_tables=at, textured=mesh.textured)
-            counts = res[-1]
-            vis_out["vis"] = 1.0 - counts.astype(jnp.float32) / cfg.spp
-        elif soft:
-            res = trace_closest_soft_shadow_pallas(
-                gb_accel, o, d,
-                jnp.asarray(light.direction, jnp.float32),
-                jnp.cos(light.angular_radius), cfg.spp, seed,
-                cfg.shadow_bias, attr_tables=at, textured=mesh.textured)
-            counts = res[-1]
-            vis_out["vis"] = 1.0 - counts.astype(jnp.float32) / cfg.spp
-        else:
-            res = trace_closest_shadow_pallas(
-                gb_accel, o, d, jnp.asarray(light.direction, jnp.float32),
-                cfg.shadow_bias, light_pos=lpos, attr_tables=at,
-                textured=mesh.textured)
-            occ = res[-1]
-            vis_out["vis"] = jnp.where(occ, 0.0, 1.0)
-        return res
-
-    height = rays[0].shape[0] if rays is not None else cfg.height
-    if attr_tables is not None:
-        gbuf = _fused_attr_gbuf(
-            lambda o, d: trace(o, d, attr_tables)[0],
-            mesh, cam, cfg, rays, height)
-    else:
-        def tracer(o, d):
-            t, sidx = trace(o, d, None)[:2]
-            return t, None, sidx
-        gbuf = gbuffer_pass(tracer, mesh, cam, cfg.width, height,
-                            shade_table=shade_table, rays=rays)
-    gbuf = _apply_mesh_textures(gbuf, mesh)
-    vis = jnp.where(gbuf["valid"], vis_out["vis"], 1.0)
-    return gbuf, vis
+def shadow_production(bvh, gbuf: Dict[str, jnp.ndarray], light: Light,
+                      key: jax.Array, cfg: RenderConfig):
+    """One light's shadow pass -> (visibility, errors); shared by the
+    frame, the sharded frame and profile mode."""
+    _, trace_any = make_tracers(cfg)
+    return shadow_pass(
+        lambda o, d, tm: trace_any(bvh, o, d, tm),
+        gbuf, light, cfg.spp, key, cfg.shadow_bias,
+        scene_bounds=(bvh.root_min, bvh.root_max))
 
 
 @partial(jax.jit, static_argnames=("cfg",))
-def render_frame_fn(bvh: LBVH, mesh: Mesh, cam: Camera,
-                    lights: Sequence[Light], key: jax.Array,
-                    cfg: RenderConfig,
-                    shade_table=None,
-                    shade_table_orig=None,
-                    attr_tables=None) -> Dict[str, jnp.ndarray]:
-    """One fused frame: G-buffer -> per-light shadow batches -> composite."""
-    num_lights = len(lights)
-    tabs = shade_table is not None or attr_tables is not None
-    fusedN = tabs and fused_multi_applicable(cfg, bvh, lights)
-    fusedSM = (not fusedN and tabs
-               and fused_soft_multi_applicable(cfg, bvh, lights))
-    fused0 = (not fusedN and not fusedSM and tabs
-              and fused_shadow_applicable(cfg, bvh, lights))
-    if fusedN:
-        gbuf, shadows = gbuffer_multi_shadow_fused_production(
-            bvh, mesh, cam, cfg, lights, shade_table,
-            attr_tables=attr_tables)
-    elif fusedSM:
-        gbuf, shadows = gbuffer_soft_multi_shadow_fused_production(
-            bvh, mesh, cam, cfg, lights, shade_table,
-            key=jax.random.fold_in(key, 0), attr_tables=attr_tables)
-    else:
-        if fused0:
-            gbuf, vis0 = gbuffer_shadow_fused_production(
-                bvh, mesh, cam, cfg, lights[0], shade_table,
-                key=jax.random.fold_in(key, 0), attr_tables=attr_tables)
-        else:
-            gbuf = gbuffer_production(bvh, mesh, cam, cfg, shade_table,
-                                      shade_table_orig,
-                                      attr_tables=attr_tables)
-        shadows = []
-        for li in range(num_lights):
-            if li == 0 and fused0:
-                shadows.append(vis0)
-                continue
-            lkey = jax.random.fold_in(key, li)
-            shadows.append(shadow_production(bvh, gbuf, lights[li], lkey,
-                                             cfg))
+def render_frame_fn(bvh, mesh: Mesh, cam: Camera, lights: Sequence[Light],
+                    key: jax.Array, cfg: RenderConfig, shade_table=None,
+                    rays=None) -> Dict[str, jnp.ndarray]:
+    """One fused frame: G-buffer -> per-light shadow batches -> composite.
+
+    ``shade_table`` (passes/shading.make_shade_table of the accel's LBVH)
+    is required on the 8-wide accel, whose walks return sorted indices.
+    ``rays``: optional precomputed (origins, dirs) band — the sharded frame
+    (parallel/tiling.py) renders its shard through here.
+    ``out["trace_errors"]`` sums every pass's walk errors."""
+    gbuf = gbuffer_production(bvh, mesh, cam, cfg, shade_table, rays=rays)
+    errors = gbuf.pop("trace_errors")
+    shadows = []
+    for li, light in enumerate(lights):
+        vis, err = shadow_production(bvh, gbuf, light,
+                                     jax.random.fold_in(key, li), cfg)
+        shadows.append(vis)
+        errors = errors + err
     # Composite: sum of per-light direct terms + one ambient term.
     img = composite_pass(gbuf, shadows[0], lights[0], cfg.ambient,
                          cfg.background)
-    for li in range(1, num_lights):
+    for li in range(1, len(lights)):
         extra = composite_pass(gbuf, shadows[li], lights[li], 0.0,
                                (0.0, 0.0, 0.0))
         img = jnp.where(gbuf["valid"][..., None], img + extra, img)
-    out = {"image": img, "shadow": jnp.stack(shadows), **gbuf}
-    return out
+    return {"image": img, "shadow": jnp.stack(shadows), **gbuf,
+            "trace_errors": errors}
+
+
+class TraceError(RuntimeError):
+    """A traversal walk overflowed its stack or hit its iteration cap."""
+
+
+def check_trace_errors(errors, where: str) -> None:
+    n = int(np.asarray(errors))
+    if n:
+        raise TraceError(f"{n} ray walks in {where} overflowed the traversal "
+                         f"stack or hit the iteration cap")
 
 
 class Renderer:
@@ -638,40 +220,31 @@ class Renderer:
         if isinstance(lights, Light):
             lights = [lights]
         assert mode in ("static", "rebuild", "refit")
-        config = self._check_vmem_budget(config, mesh)
+        if config.use_kernel:
+            if config.bvh_width != 8:
+                raise ValueError("the CUDA kernel walks the 8-wide accel "
+                                 "only; use bvh_width=8 or use_kernel=False")
+            from .kernels.traverse import build_library
+            build_library()               # raises off CUDA
         # Static/refit scenes use the native host SAH build when available
-        # (the reference's own startup strategy): measured on Sponza, the
-        # SAH tree traces 15% faster for shadows and 2x for closest-hit
-        # than the on-device Morton tree — so the ray-cast G-buffer also
-        # becomes the better "auto" primary-visibility strategy. Per-frame
-        # rebuilds (config 2) keep the on-device LBVH.
-        self._use_sah = (config.sah and mode != "rebuild"
-                         and config.use_pallas
-                         and config.bvh_width == 8 and _sah_available())
-        if self._use_sah and config.gbuffer == "auto":
-            config = dataclasses.replace(config, gbuffer="ray")
-        # Rebuild-mode on-device builds honor top_sah / rebuild_splits so
-        # the wide-node count (a function of topology) is counted on the
-        # same trees the per-frame rebuild produces.
+        # (the reference's own startup strategy); per-frame rebuilds
+        # (config 2) keep the on-device LBVH, as do scenes that fit one
+        # leaf (a single-leaf SAH tree has no internal node to store).
+        want_sah = (config.sah and mode != "rebuild"
+                    and config.bvh_width == 8
+                    and mesh.num_triangles > config.leaf_size)
+        self._use_sah = want_sah and _sah_available()
+        if want_sah and not self._use_sah:
+            print("tpurt: native SAH library unavailable; building the "
+                  "on-device Morton LBVH instead", file=sys.stderr)
         self._rebuild_splits = 0
         if mode == "rebuild" and config.rebuild_splits:
             from .bvh.lbvh import auto_split_blocks
             self._rebuild_splits = (
                 auto_split_blocks(mesh.num_triangles, config.leaf_size)
                 if config.rebuild_splits < 0 else config.rebuild_splits)
-        if self._rebuild_splits and config.gbuffer == "auto":
-            # Sub-leaf clustered rebuilds flip the auto primary-visibility
-            # strategy to the ray/attr path: measured r5d (Sponza 1080p,
-            # v5e) the clustered rebuilt-tree attr G-buffer runs 36.65 ms
-            # vs the 73.64 ms raster fallback that plain Morton rebuilds
-            # need (r3ac: un-clustered attr was 68.1 ms — worse than
-            # raster, hence the old auto choice).
-            config = dataclasses.replace(config, gbuffer="ray")
-        if self._rebuild_splits:
-            # Camera-ordering the accel loses on clustered rebuilt trees:
-            # the fused frame's any-hit phase pays +11.9 ms (probe r5h,
-            # near-camera-first == far-from-light-first) against a
-            # -7.3 ms closest-hit gain. See RenderConfig.order_children.
+            # Camera-ordering the accel loses on clustered rebuilt trees
+            # (see RenderConfig.order_children).
             config = dataclasses.replace(config, order_children=False)
         self.config = config
         self.mode = mode
@@ -681,7 +254,6 @@ class Renderer:
         self.mesh = jax.device_put(mesh)
         self._build_jit = jax.jit(partial(
             build_lbvh, leaf_size=config.leaf_size,
-            top_sah=(config.top_sah and mode == "rebuild"),
             split_blocks=self._rebuild_splits))
         self._refit_jit = jax.jit(refit_lbvh)
         self.frame_index = 0
@@ -698,6 +270,17 @@ class Renderer:
             self._clip_plan = self._make_clip_plan()
         self.stats.build_ms = timer.ms["build"]
         self._base_cost = float(sah_cost(self.bvh))
+        print(f"tpurt: accel = {self.accel_kind}", file=sys.stderr)
+
+    @property
+    def accel_kind(self) -> str:
+        """Which accel this renderer built, for logs and checks."""
+        tree = ("native host SBVH" if self._use_sah
+                else "on-device Morton LBVH")
+        if self.config.bvh_width != 8:
+            return f"{tree}, binary, XLA walk"
+        walk = "CUDA kernel" if self.config.use_kernel else "XLA walk"
+        return f"{tree}, 8-wide, {walk}"
 
     def _build_or_load_cached(self, host_mesh: Mesh,
                               cache_dir: Optional[str]):
@@ -720,12 +303,9 @@ class Renderer:
                 return jax.device_put(cached)
         if self._use_sah:
             from .bvh.sah import build_sah_lbvh
-            bvh = build_sah_lbvh(host_mesh, self.config.leaf_size)
-            if bvh is None:
-                self._use_sah = False      # native lib unavailable
-            else:
-                bvh = jax.device_put(bvh)
-        if not self._use_sah:
+            bvh = jax.device_put(build_sah_lbvh(host_mesh,
+                                                self.config.leaf_size))
+        else:
             bvh = jax.block_until_ready(
                 self._build_jit(self.mesh.vertices, self.mesh.indices))
         if key is not None:
@@ -733,149 +313,54 @@ class Renderer:
             save_bvh(cache_dir, key, jax.device_get(bvh))
         return bvh
 
-    # VMEM the kernel needs beyond the BVH itself: ray blocks (10 comps in
-    # + 2 out f32[8,128] x batch, double-buffered) + Mosaic scratch slack.
-    _VMEM_OVERHEAD = 1_500_000
-    # Empirical ceiling on this v5e: 19.8 MB of const accel blocks compile
-    # and run (Sponza SAH, round 2); 24.7 MB fails in the Mosaic allocator.
-    _VMEM_BUDGET = 20_000_000
-
-    @classmethod
-    def _check_vmem_budget(cls, config: RenderConfig,
-                           mesh: Mesh) -> RenderConfig:
-        """The Pallas kernels keep the BVH VMEM-resident. This pre-build
-        check uses the EXACT binary layout size (kernels/pack.py formulas)
-        plus a conservative wide-node bound; _make_accel re-checks with the
-        exact wide-node count once it is known. Scenes past the budget fall
-        back to the pure-JAX traversal with a warning instead of failing
-        deep inside the Mosaic compiler."""
-        if not config.use_pallas:
-            return config
-        if config.bvh_width == 8:
-            # Over-budget wide scenes are CHUNKED (bvh/chunked.py), decided
-            # with the exact count in _make_accel — no fallback needed.
-            return config
-        from .kernels.pack import binary_vmem_bytes
-        est = binary_vmem_bytes(mesh.num_triangles,
-                                config.leaf_size) + cls._VMEM_OVERHEAD
-        if est > cls._VMEM_BUDGET:
-            import sys
-            print(f"tpurt: scene needs ~{est/1e6:.1f} MB VMEM for the "
-                  f"binary Pallas kernel (> {cls._VMEM_BUDGET/1e6:.1f} MB "
-                  f"budget at leaf_size={config.leaf_size}); falling back "
-                  "to the pure-JAX traversal (bvh_width=8 scenes chunk "
-                  "instead).", file=sys.stderr)
-            return dataclasses.replace(config, use_pallas=False,
-                                       leaf_size=min(config.leaf_size, 8))
-        return config
-
     def _make_accel(self):
-        """Kernel-facing accel structure: 8-wide BVH for the Pallas path,
-        else the LBVH itself. The ONLY host sync for the wide-node count
-        happens here — once per scene (or per overflow recovery) — and the
-        padded count is cached so per-frame rebuilds run as one fused device
-        program (_rebuild_fused). The exact VMEM decision also lives here:
-        with the real count known, scenes past the budget fall back to the
-        pure-JAX path before any Mosaic compile."""
+        """Traversal-facing accel: the 8-wide rows (bvh_width=8) or the
+        LBVH itself. The ONLY host sync for the wide-node count happens
+        here — once per scene (or per overflow recovery) — and the padded
+        count is cached so per-frame rebuilds run as one fused device
+        program (_rebuild_fused)."""
         self.shade_table = jax.jit(make_shade_table)(self.bvh, self.mesh)
-        self.shade_table_orig = jax.jit(make_shade_table_orig)(self.mesh)
-        self.attr_tables = None
         self._nw_pad = None
-        if self.config.use_pallas and self.config.bvh_width == 8:
-            from .bvh.wide import count_wide, make_wide_plan, round_up_bucket
-            from .kernels.pack import wide_vmem_bytes
-            # The rebuild hot path collapses with config.rebuild_collapse
-            # every frame ("fixed" cut, or "area" via the scalar-core
-            # collapse kernel), so its pad must be counted the same way;
-            # static/refit scenes take the default (area — probe r3u:
-            # ~8% faster shadow trace at identical results).
-            collapse_mode = (self.config.rebuild_collapse
-                             if self.mode == "rebuild" else None)
-            nw_pad = round_up_bucket(
-                max(count_wide(self.bvh, mode=collapse_mode), 1))
-            # The BVH's OWN padded triangle count (SAH leaves repeat-pad).
-            ntris = int(self.bvh.tri_v0.shape[0])
-            exact = wide_vmem_bytes(nw_pad, ntris, self.config.leaf_size)
-            if exact + self._VMEM_OVERHEAD > self._VMEM_BUDGET:
-                # Scene past the single-accel VMEM budget: Morton-split it
-                # into per-chunk wide BVHs traced sequentially with t/occ
-                # carry (bvh/chunked.py) — the reference has no such
-                # ceiling, and neither should we.
-                import sys
-                from .bvh.chunked import build_chunked, chunks_needed
-                c = chunks_needed(self.mesh.num_triangles,
-                                  self.config.leaf_size,
-                                  self._VMEM_BUDGET, self._VMEM_OVERHEAD)
-                print(f"tpurt: packed scene is {exact/1e6:.1f} MB "
-                      f"(> {self._VMEM_BUDGET/1e6:.1f} MB VMEM budget); "
-                      f"splitting into {c} chunked accels.", file=sys.stderr)
-                return build_chunked(self.mesh.vertices, self.mesh.indices,
-                                     c, leaf_size=self.config.leaf_size)
-            self._nw_pad = nw_pad
-            if self._use_attrs(nw_pad):
-                self.attr_tables = jax.jit(make_leaf_attr_rows)(
-                    self.bvh, self.mesh)
-            if self.bvh.leaf_block is not None:
-                # Sub-leaf clustered tree (rebuild mode): no refit plan —
-                # the per-frame path rebuilds from scratch; widen the
-                # as-built accel directly.
-                from .bvh.wide import _widen_jit
-                self._wide_plan = None
-                return jax.block_until_ready(_widen_jit(
-                    self.bvh, nw_pad=nw_pad, mode=collapse_mode))
-            self._wide_plan = jax.jit(
-                make_wide_plan, static_argnames=("nw_pad", "mode"))(
-                    self.bvh, nw_pad=nw_pad, mode=collapse_mode)
-            from .bvh.wide import leaf_boxes_from_nodes, widen_from_plan
-            # Leaf slots take the builder's STORED boxes where available:
-            # on SBVH topologies these are the clipped reference boxes
-            # (strictly tighter than the full-triangle union — probe r3u
-            # measured with them). Refits re-derive leaf boxes from the
-            # deformed geometry instead (clip_refit / widen_from_plan
-            # defaults), so this only feeds the as-built accel.
-            leaf_boxes = None
-            if self.bvh.nodes_box is not None:
-                leaf_boxes = jax.jit(leaf_boxes_from_nodes)(self.bvh)
-            return jax.block_until_ready(
-                jax.jit(widen_from_plan)(self._wide_plan, self.bvh,
-                                         leaf_boxes=leaf_boxes))
-        return self.bvh
-
-    # The attr rows add 2 x 512 B per leaf of VMEM-resident blocks. The
-    # measured ceiling moved past the old 20 MB budget: Sponza's accel +
-    # attr rows (~50 MB of const blocks) compile and run on this v5e
-    # (probe r3aa) — gate the attr path on that measured-good size.
-    _VMEM_BUDGET_ATTR = 52_000_000
-
-    def _use_attrs(self, nw_pad: int) -> bool:
-        """Attribute-tracked G-buffer gate: config on + the frame actually
-        takes the ray-cast path + fits in VMEM alongside the wide accel."""
-        if not self.config.inkernel_attrs:
-            return False
-        if self.config.seeded_gbuffer:
-            # The seeded two-pass trace exists only on the shade-table
-            # path; honor the explicit flag rather than silently ignoring
-            # it (it is a measured-out variant kept for reproducibility).
-            return False
-        if use_raster_gbuffer(self.config):
-            # The raster G-buffer keys by original tri id; attr rows would
-            # be built per rebuild and never read.
-            return False
-        from .kernels.pack import wide_vmem_bytes
-        ntris = int(self.bvh.tri_v0.shape[0])
-        # at1 is a (1, 128) dummy for leaf_size <= 8 (one row per leaf
-        # otherwise) — match make_leaf_attr_rows exactly.
-        rows = (2 if self.config.leaf_size > 8 else 1)
-        attr_bytes = rows * self.bvh.num_blocks * 512 + 512
-        total = wide_vmem_bytes(nw_pad, ntris, self.config.leaf_size) \
-            + attr_bytes + self._VMEM_OVERHEAD
-        return total <= self._VMEM_BUDGET_ATTR
+        if self.config.bvh_width != 8:
+            return self.bvh
+        from .bvh.wide import count_wide, make_wide_plan, round_up_bucket
+        # The rebuild hot path collapses with config.rebuild_collapse every
+        # frame, so its pad must be counted the same way; static/refit
+        # scenes take the default (area) frontier.
+        collapse_mode = (self.config.rebuild_collapse
+                         if self.mode == "rebuild" else None)
+        nw_pad = round_up_bucket(
+            max(count_wide(self.bvh, mode=collapse_mode), 1))
+        self._nw_pad = nw_pad
+        if self.bvh.leaf_block is not None:
+            # Sub-leaf clustered tree (rebuild mode): no refit plan — the
+            # per-frame path rebuilds from scratch; widen the as-built
+            # accel directly.
+            from .bvh.wide import _widen_jit
+            self._wide_plan = None
+            return jax.block_until_ready(_widen_jit(
+                self.bvh, nw_pad=nw_pad, mode=collapse_mode))
+        self._wide_plan = jax.jit(
+            make_wide_plan, static_argnames=("nw_pad", "mode"))(
+                self.bvh, nw_pad=nw_pad, mode=collapse_mode)
+        from .bvh.wide import leaf_boxes_from_nodes, widen_from_plan
+        # Leaf slots take the builder's STORED boxes where available: on
+        # SBVH topologies these are the clipped reference boxes (strictly
+        # tighter than the full-triangle union). Refits re-derive leaf
+        # boxes from the deformed geometry instead (clip_refit /
+        # widen_from_plan defaults), so this only feeds the as-built accel.
+        leaf_boxes = None
+        if self.bvh.nodes_box is not None:
+            leaf_boxes = jax.jit(leaf_boxes_from_nodes)(self.bvh)
+        return jax.block_until_ready(
+            jax.jit(widen_from_plan)(self._wide_plan, self.bvh,
+                                     leaf_boxes=leaf_boxes))
 
     def _make_clip_plan(self):
         """Refit-mode precompute: barycentric clip polygons per leaf slot
-        (bvh/clip_refit.py), evaluated ON DEVICE (milliseconds). Valid for
-        any frozen topology; pays off most on SBVH trees, whose clipped
-        boxes a full-triangle refit would forfeit."""
+        (bvh/clip_refit.py), evaluated ON DEVICE. Valid for any frozen
+        topology; pays off most on SBVH trees, whose clipped boxes a
+        full-triangle refit would forfeit."""
         if self.mode != "refit" or self._nw_pad is None:
             return None
         from .bvh.clip_refit import (ClipRefitPlan, clip_slots_bary_device,
@@ -889,21 +374,10 @@ class Renderer:
         """Refit fast path: topology (and therefore the wide plan) is
         frozen, so only boxes are re-gathered — no count host-sync. The
         shading table holds geometry (v0/e1/e2, normals) and must follow."""
-        from .bvh.chunked import ChunkedAccel
         self.shade_table = jax.jit(make_shade_table)(self.bvh, self.mesh)
-        self.shade_table_orig = jax.jit(make_shade_table_orig)(self.mesh)
-        if self.attr_tables is not None:
-            # Deformed geometry moved the vertex normals (and v0/e1/e2);
-            # the leaf attr rows carry them, so they follow the refit.
-            self.attr_tables = jax.jit(make_leaf_attr_rows)(self.bvh,
-                                                            self.mesh)
         if self._nw_pad is not None:
             from .bvh.wide import widen_from_plan
             return jax.jit(widen_from_plan)(self._wide_plan, self.bvh)
-        if isinstance(self.accel, ChunkedAccel):
-            # Chunked scenes rebuild their chunks on refit (the chunk split
-            # is positional; a per-chunk refit plan is future work).
-            return self._make_accel()
         return self.bvh
 
     # -- scene updates ------------------------------------------------------
@@ -936,16 +410,10 @@ class Renderer:
             with timer.section("build", None):
                 if self._nw_pad is not None:
                     # Fused build+collapse+shading-table: one device program,
-                    # no host sync (VERDICT r1 item 2 — the old path paid a
-                    # ~150 ms count_wide round trip every frame). Only the
-                    # tables THIS frame strategy reads are built (r3ac).
-                    tables = "attr" if self.attr_tables is not None else (
-                        "sto" if use_raster_gbuffer(self.config) else "st")
-                    bvh, accel, st, st_orig, at, cnt = _rebuild_fused(
+                    # no per-frame host sync for the wide-node count.
+                    bvh, accel, st, cnt = _rebuild_fused(
                         self.mesh.vertices, self.mesh.indices, self.mesh,
                         self.config.leaf_size, self._nw_pad,
-                        tables=tables, textured=bool(self.mesh.textured),
-                        top_sah=self.config.top_sah,
                         collapse=self.config.rebuild_collapse,
                         split_blocks=self._rebuild_splits)
                     overflow = False
@@ -958,22 +426,14 @@ class Renderer:
                     if overflow:
                         # Pad overflow: recount + re-plan (host sync) — the
                         # recovery path; rendering never sees the truncated
-                        # collapse. Re-build with FULL boxes: _make_accel's
-                        # wide-plan path reads nodes_box, which the fused
-                        # (deferred-box) rebuild above doesn't materialize.
+                        # collapse.
                         self.bvh = jax.block_until_ready(
                             self._build_jit(self.mesh.vertices,
                                             self.mesh.indices))
                         self.accel = self._make_accel()
                     else:
-                        self.bvh, self.accel = bvh, accel
-                        # Tables the strategy skipped are None-d: a stale
-                        # table from the previous topology must never be
-                        # readable by accident.
-                        self.shade_table = st
-                        self.shade_table_orig = st_orig
-                        if at is not None:
-                            self.attr_tables = at
+                        self.bvh, self.accel, self.shade_table = \
+                            bvh, accel, st
                         jax.block_until_ready(accel.nodes)
                 else:
                     self.bvh = jax.block_until_ready(
@@ -986,15 +446,10 @@ class Renderer:
                 if self._clip_plan is not None:
                     # Clip-geometry refit (bvh/clip_refit.py): one fused
                     # program, preserves the static SBVH's spatial-split
-                    # quality — measured 6.2 ms refit + full-speed trace vs
-                    # 17.5 ms + 1.9x slower trace for the plain path.
-                    self.bvh, self.accel, self.shade_table, \
-                        self.shade_table_orig, at = _clip_refit_fused(
-                            self._clip_plan, self.bvh,
-                            self.mesh.vertices, self.mesh,
-                            attrs=self.attr_tables is not None)
-                    if at is not None:
-                        self.attr_tables = at
+                    # quality.
+                    self.bvh, self.accel, self.shade_table = \
+                        _clip_refit_fused(self._clip_plan, self.bvh,
+                                          self.mesh.vertices, self.mesh)
                     jax.block_until_ready(self.accel.nodes)
                 else:
                     self.bvh = jax.block_until_ready(
@@ -1013,12 +468,8 @@ class Renderer:
                             self.mesh,
                             vertices=np.asarray(self.mesh.vertices),
                             indices=np.asarray(self.mesh.indices))
-                        rebuilt = build_sah_lbvh(host,
-                                                 self.config.leaf_size)
-                        self.bvh = jax.device_put(rebuilt) \
-                            if rebuilt is not None else \
-                            jax.block_until_ready(self._build_jit(
-                                self.mesh.vertices, self.mesh.indices))
+                        self.bvh = jax.device_put(build_sah_lbvh(
+                            host, self.config.leaf_size))
                     else:
                         self.bvh = jax.block_until_ready(
                             self._build_jit(self.mesh.vertices,
@@ -1035,7 +486,7 @@ class Renderer:
 
         profile=True re-runs the passes split at pass boundaries to collect
         per-pass timings (the HUD path); the returned image always comes from
-        the fused pipeline.
+        the fused pipeline. Raises TraceError if any ray walk overflowed.
         """
         cfg = self.config
         timer = Timer()
@@ -1045,31 +496,12 @@ class Renderer:
         with timer.section("frame", None):
             out = render_frame_fn(self.accel, self.mesh, self.camera,
                                   tuple(self.lights), key, cfg,
-                                  shade_table=self.shade_table
-                                  if cfg.use_pallas else None,
-                                  shade_table_orig=self.shade_table_orig,
-                                  attr_tables=self.attr_tables)
+                                  shade_table=self.shade_table)
             jax.block_until_ready(out["image"])
         self.stats.frame_ms = timer.ms["frame"]
-
-        if "raster_overflow" in out and bool(np.asarray(
-                out["raster_overflow"])):
-            # Rasterizer pair capacity overflowed for this viewpoint: double
-            # it (static -> recompile) and re-render; never return a frame
-            # with dropped coverage.
-            from .raster.setup import default_cap_rows
-            cap = cfg.raster_cap_pairs or default_cap_rows(
-                self.mesh.num_triangles)
-            # Jump straight to at least the scene-size default: doubling
-            # from a tiny explicit cap one step at a time costs a Mosaic
-            # recompile per step.
-            new_cap = max(2 * cap, default_cap_rows(self.mesh.num_triangles))
-            self.config = dataclasses.replace(cfg,
-                                              raster_cap_pairs=new_cap)
-            import sys
-            print(f"tpurt: raster pair capacity {cap} overflowed; "
-                  f"retrying with {new_cap}.", file=sys.stderr)
-            return self.render_frame(profile=profile)
+        valid, errors = jax.device_get((jnp.sum(out["valid"]),
+                                        out["trace_errors"]))
+        check_trace_errors(errors, f"frame {self.frame_index}")
 
         if profile:
             self._profile_passes(key, timer)
@@ -1084,32 +516,23 @@ class Renderer:
             out = dict(out)
             out["image"] = self.accum
 
-        valid = int(np.asarray(jnp.sum(out["valid"])))
         self.stats.rays_primary = cfg.num_pixels
 
         def _rays_per_pixel(light) -> int:
             # shadow_pass only multi-samples soft lights (area-cone/point
             # at spp > 1); hard lights trace exactly one ray per pixel.
-            from .types import LIGHT_AREA_CONE, LIGHT_POINT
             soft = light.kind in (LIGHT_AREA_CONE, LIGHT_POINT) \
                 and cfg.spp > 1
             return cfg.spp if soft else 1
 
-        self.stats.rays_shadow = valid * sum(
+        self.stats.rays_shadow = int(valid) * sum(
             _rays_per_pixel(l) for l in self.lights)
-        # Mrays/s is shadow rays / SHADOW-PASS seconds (the BASELINE metric);
-        # the shadow pass is only timed in profile mode, so without it the
-        # metric is reported as 0 ("not measured") rather than a mislabeled
-        # rays/frame-time number or a stale value from an earlier profile.
-        # Lights traced inside the fused primary dispatch have no separate
-        # shadow timing, so only the unfused lights' rays enter the metric
-        # (all-fused frames report 0 — the work is indivisible from the
-        # G-buffer; see bench.py for the kernel-level Mrays numbers).
+        # Mrays/s is shadow rays / SHADOW-PASS seconds (the BASELINE
+        # metric); the shadow pass is only timed in profile mode, so
+        # without it the metric is reported as 0 ("not measured").
         if profile:
-            unfused = getattr(self, "_profiled_unfused_lights", self.lights)
-            timed_rays = valid * sum(_rays_per_pixel(l) for l in unfused)
             self.stats.mrays_per_s = mrays_per_s(
-                timed_rays, self.stats.shadow_ms / 1e3) if unfused else 0.0
+                self.stats.rays_shadow, self.stats.shadow_ms / 1e3)
         else:
             self.stats.shadow_ms = 0.0
             self.stats.gbuffer_ms = 0.0
@@ -1121,67 +544,18 @@ class Renderer:
     def _profile_passes(self, key, timer: Timer) -> None:
         """Per-pass timings via the SAME pass constructors the fused frame
         uses — a profile of any other code path would misreport
-        gbuffer_ms/shadow_ms and the Mrays/s derived from them. On the
-        fused primary+shadow paths the kernel is one indivisible program,
-        so gbuffer_ms covers the fused dispatch (primary + its in-kernel
-        shadows) and shadow_ms only the remaining unfused lights."""
+        gbuffer_ms/shadow_ms and the Mrays/s derived from them."""
         cfg = self.config
-        st = self.shade_table if cfg.use_pallas else None
-        tabs = st is not None or self.attr_tables is not None
-        fusedN = (tabs
-                  and fused_multi_applicable(cfg, self.accel, self.lights))
-        fusedSM = (not fusedN and tabs
-                   and fused_soft_multi_applicable(cfg, self.accel,
-                                                   self.lights))
-        fused0 = (not fusedN and not fusedSM and tabs
-                  and fused_shadow_applicable(cfg, self.accel, self.lights))
-        masks = []
-        if fusedN:
-            gbf = jax.jit(partial(gbuffer_multi_shadow_fused_production,
-                                  cfg=cfg, lights=tuple(self.lights)))
-            with timer.section("gbuffer"):
-                gbuf, vises = gbf(self.accel, self.mesh, self.camera,
-                                  shade_table=st,
-                                  attr_tables=self.attr_tables)
-                jax.block_until_ready(gbuf["t"])
-            masks = list(vises)
-        elif fusedSM:
-            gbf = jax.jit(partial(
-                gbuffer_soft_multi_shadow_fused_production,
-                cfg=cfg, lights=tuple(self.lights)))
-            with timer.section("gbuffer"):
-                gbuf, vises = gbf(self.accel, self.mesh, self.camera,
-                                  shade_table=st,
-                                  key=jax.random.fold_in(key, 0),
-                                  attr_tables=self.attr_tables)
-                jax.block_until_ready(gbuf["t"])
-            masks = list(vises)
-        elif fused0:
-            gbf = jax.jit(partial(gbuffer_shadow_fused_production,
-                                  cfg=cfg, light=self.lights[0]))
-            with timer.section("gbuffer"):
-                gbuf, vis0 = gbf(self.accel, self.mesh, self.camera,
-                                 shade_table=st,
-                                 key=jax.random.fold_in(key, 0),
-                                 attr_tables=self.attr_tables)
-                jax.block_until_ready(gbuf["t"])
-            masks = [vis0]
-        else:
-            gb = jax.jit(partial(gbuffer_production, cfg=cfg))
-            with timer.section("gbuffer"):
-                gbuf = gb(self.accel, self.mesh, self.camera,
-                          shade_table=st,
-                          shade_table_orig=self.shade_table_orig,
-                          attr_tables=self.attr_tables)
-                jax.block_until_ready(gbuf["t"])
-        self._profiled_unfused_lights = list(self.lights[len(masks):])
+        gb = jax.jit(partial(gbuffer_production, cfg=cfg))
+        with timer.section("gbuffer"):
+            gbuf = gb(self.accel, self.mesh, self.camera,
+                      shade_table=self.shade_table)
+            jax.block_until_ready(gbuf["t"])
+        gbuf.pop("trace_errors")
         sp = jax.jit(partial(shadow_production, cfg=cfg))
         with timer.section("shadow"):
-            for li, light in enumerate(self.lights):
-                if li < len(masks):
-                    continue
-                masks.append(sp(self.accel, gbuf, light,
-                                jax.random.fold_in(key, li)))
+            masks = [sp(self.accel, gbuf, light, jax.random.fold_in(key, li))
+                     [0] for li, light in enumerate(self.lights)]
             jax.block_until_ready(masks)
         cp = jax.jit(lambda gbuf, mask, light: composite_pass(
             gbuf, mask, light, cfg.ambient, cfg.background))

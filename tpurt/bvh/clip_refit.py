@@ -7,7 +7,7 @@ A classic refit (full-triangle leaf boxes + bottom-up union) forfeits the
 clipping: every duplicated reference re-inflates to the whole triangle
 and the spatial-split advantage dissolves.
 
-The TPU-native fix: a clipped region is STATIC IN BARYCENTRIC SPACE.
+The fix: a clipped region is STATIC IN BARYCENTRIC SPACE.
 Each leaf's clip region is ``triangle ∩ leaf_box`` (a convex polygon of
 <= 9 vertices); a vertex with fixed barycentric coordinates moves
 affinely with the deformed triangle corners, so the polygon's

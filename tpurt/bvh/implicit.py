@@ -1,30 +1,24 @@
 """Implicit 8-ary Morton BVH: the fast per-frame rebuild path (config 2/4).
 
-The Karras+collapse rebuild (lbvh.py + wide.py) is gather-bound on TPU:
-probe r3i measured XLA row gathers at ~10 ns/row *regardless of row
-width*, so the sort-order gather (6 ms), the RMQ box queries (~2 ms) and
-the frontier-collapse gathers (~5 ms) dominate the 21 ms fused rebuild
-while every elementwise/reshape phase is noise. This module removes every
-post-sort gather:
+The Karras+collapse rebuild (lbvh.py + wide.py) spends most of its work on
+row gathers: the sort-order gather, the RMQ box queries and the frontier
+collapse. This module removes every post-sort gather:
 
 - **Co-sorted payload.** ``lax.sort`` carries the 9-float Möller–Trumbore
   payload (v0, e1, e2) and the 3 vertex ids through the key sort as extra
-  operands — probe r3i: sort+9 payloads = 2.8 ms vs sort 1.9 + row gather
-  2.8 (and the payload arrives already sorted, so leaf packing is a
+  operands (the payload arrives already sorted, so leaf packing is a
   reshape).
 - **Implicit topology.** Leaves are K consecutive sorted triangles; wide
   node w at each level owns children 8w..8w+7 of the level below. No
   Karras search, no collapse: child references are ``arange`` arithmetic,
   entirely static. (This is the classic implicit/complete LBVH layout —
   an index-median tree over the Morton order instead of Karras's
-  radix-prefix tree. Tree quality is measured against the Karras tree in
-  probes/probe_r3j.py; the static path keeps the native SBVH.)
+  radix-prefix tree; the static path keeps the native SBVH.)
 - **Pairwise-8 box reduction.** Level boxes by ``reshape(-1, 8, 3).min``
   sweeps — log8(n) fused reductions, no RMQ table, no gathers.
 
-The result is the same ``WideBVH`` row layout the traversal kernels
-consume (wide.py): this is a drop-in accel for ``trace_any_pallas`` /
-``trace_closest_pallas``.
+The result is the same ``WideBVH`` row layout the traversals consume
+(wide.py): a drop-in accel for the CUDA kernel and ``traverse_wide``.
 
 Reference role: replaces the per-frame use of the CPU SAH builder
 (Source/BVHBuilder.cpp [RECALL; mount empty]) for animated scenes —
@@ -143,8 +137,7 @@ def _build_from_corners(v0, e1, e2, num_tris: int, k: int, tri):
     code = morton_of_points(centroid, scene_min, scene_max)
 
     # One stable key sort carrying ALL downstream data as payload operands:
-    # no post-sort gathers anywhere (probe r3i: +9 f32 payloads cost
-    # +0.9 ms; a single row gather costs 2.8 ms).
+    # no post-sort gathers anywhere.
     ops = (code, jnp.arange(tpad, dtype=jnp.int32),
            v0[:, 0], v0[:, 1], v0[:, 2],
            e1[:, 0], e1[:, 1], e1[:, 2],

@@ -5,7 +5,7 @@ This mirrors the reference's CPU builder + compute-shader traversal pair
 (Source/BVHBuilder.cpp ``BVHBuilder::build`` and
 Source/Shaders/RayTracedShadows.comp ``castShadowRay`` [RECALL; reference
 mount empty at survey time]) but exists here as the *golden oracle*: every
-JAX/Pallas result is validated against it (SURVEY.md §4). It is deliberately
+JAX result (and, through the XLA walk, the CUDA kernel) is validated against it (SURVEY.md §4). It is deliberately
 simple, scalar, and independent of the JAX code paths.
 """
 
@@ -22,7 +22,7 @@ INVALID = np.uint32(0xFFFFFFFF)
 
 
 # ---------------------------------------------------------------------------
-# Scalar primitives (also the spec for the vectorized / Pallas versions)
+# Scalar primitives (also the spec for the vectorized and CUDA versions)
 # ---------------------------------------------------------------------------
 
 def moller_trumbore(orig, d, v0, e1, e2, t_min=0.0, t_max=np.inf,

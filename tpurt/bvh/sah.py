@@ -2,18 +2,17 @@
 
 The reference builds its BVH with a recursive CPU SAH split at startup
 (Source/BVHBuilder.cpp [RECALL]) and only the traversal runs per frame.
-This module gives the TPU pipeline the same option: the C++ binned-SAH
+This module gives this pipeline the same option: the C++ binned-SAH
 builder (native/tpurt_native.cpp) runs once per scene on the host, and its
 DFS + skip-link tree is converted to the exact LBVH array layout the wide
-collapse and Pallas kernels consume.
+collapse and the traversals consume.
 
-Why it earns its place (measured, Sponza-class 287k tris, 1080p, v5e):
-traversal iterations/packet drop 12.9 -> 9.2 and the shadow trace goes
-100 -> 115 Mrays/s vs the on-device Morton/Karras tree. Cost: variable SAH
-leaf occupancy (~10 of 14) repeat-pads the triangle arrays ~1.4x, and the
-build is a host-side scene-load step (~0.1 s for Sponza) — so this is the
-STATIC-scene path; per-frame rebuilds (config 2) and refits (config 4)
-keep the on-device LBVH.
+Why: an SAH tree culls better than the on-device Morton/Karras tree, so
+every traversal visits fewer nodes. Cost: variable SAH leaf occupancy
+repeat-pads the triangle arrays (~1.46x on Sponza-class scenes at leaf
+14), and the build is a host-side scene-load step — so this is the
+STATIC-scene path; per-frame rebuilds (config 2) keep the on-device LBVH
+and refits (config 4) the clip-geometry refit of this tree.
 
 The conversion also derives contiguous per-node leaf ranges (DFS order), so
 `refit_lbvh`'s RMQ refit and `sah_cost` work unchanged on SAH topologies.
@@ -104,11 +103,8 @@ def build_sah_lbvh(mesh: Mesh, leaf_size: int = 14,
 
     Defaults to SBVH spatial splits (Stich et al. 2009 style; chopped
     binning, clipped-reference duplication capped at ``spatial_budget`` x
-    num_tris). Measured on Sponza-class 287k tris, 1080p shadows, v5e
-    (round 3): object-only all-axes SAH traces 13.1 ms (151 Mrays/s);
-    SBVH alpha=1e-4 budget=1.2 traces 7.9 ms (252 Mrays/s) at 1.05x the
-    reference count — spatial splits collapse the long thin-triangle
-    overlap chains that dominate packet traversal on this scene family.
+    num_tris): spatial splits collapse the long thin-triangle overlap
+    chains that dominate traversal on the Sponza-class scene family.
     spatial_alpha=None selects the object-only build."""
     from ..native import build_sah_bvh
     cpu = build_sah_bvh(np.asarray(mesh.vertices, np.float32),

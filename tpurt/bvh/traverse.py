@@ -1,18 +1,24 @@
-"""Pure-JAX (non-Pallas) LBVH traversal: vmapped per-ray short-stack walk.
+"""Plain-XLA BVH traversal: vmapped per-ray stack walks.
 
-This is the portable reference traversal (runs on CPU/TPU via plain XLA) and
-the correctness twin of the Pallas packet kernel in tpurt/kernels/traverse.py
-— mirroring how the reference keeps a compute-shader fallback next to the
-VK_NV_ray_tracing path and cross-checks them (SURVEY.md §3.5, §4).
+Two walks live here:
+
+- ``traverse`` walks the binary LBVH (two children per node).
+- ``traverse_wide`` walks the 8-wide ``WideBVH`` rows (bvh/wide.py). It is
+  the plain twin of the CUDA kernel in tpurt/kernels/traverse.py: same
+  row layout, same slab test, same empty-slot rule, same Möller–Trumbore.
+  It is the reference the kernel is checked against on the card, and the
+  route every CPU run takes.
 
 Semantics match the reference compute shader's ``castShadowRay`` loop
 (Source/Shaders/RayTracedShadows.comp [RECALL]): slab test against child
 boxes, Möller–Trumbore at leaves (two-sided), any-hit early-out for shadow
 rays; closest-hit mode drives the G-buffer pass.
 
-Stack depth 64 is provably sufficient: the Karras delta strictly increases
-along any root->leaf path and is bounded by 30 code bits + 32 tiebreak bits
-(see tpurt/bvh/lbvh.py docstring).
+The binary walk's stack of 128 is provably sufficient: the Karras delta
+strictly increases along any root->leaf path and is bounded by 60 code bits
++ 32 tiebreak bits (see tpurt/bvh/lbvh.py docstring). The wide walk's stack
+is checked instead: a walk that overflows it or passes its iteration cap is
+counted as an error, never returned as a silent miss.
 """
 
 from __future__ import annotations
@@ -139,32 +145,144 @@ def traverse(bvh: LBVH, origins: jnp.ndarray, dirs: jnp.ndarray,
     any_hit=True the t is *a* hit, not necessarily the closest — all the
     shadow pass needs (reference any-hit early-out semantics).
 
-    Rays are processed in ``chunk``-sized blocks via lax.map so live memory
-    stays O(chunk * stack) regardless of resolution — the long-axis blocking
-    strategy from SURVEY.md §5 (long-context analogue).
+    Rays are processed in ``chunk``-sized blocks (see _chunked_map).
     """
+    shape, n, o, d, tmax_arr = _flatten_rays(origins, dirs, t_max, chunk)
+    one = jax.vmap(partial(_traverse_one, bvh, any_hit, t_min))
+    t, tid = _chunked_map(one, o, d, tmax_arr, chunk)
+    return t[:n].reshape(shape), tid[:n].reshape(shape)
+
+
+def _flatten_rays(origins, dirs, t_max, chunk: int):
+    """(..., 3) rays + scalar or per-ray t_max -> flat arrays padded to a
+    multiple of ``chunk`` (padding rays have t_max = 0: inactive)."""
     shape = origins.shape[:-1]
     o = origins.reshape(-1, 3)
     d = dirs.reshape(-1, 3)
     n = o.shape[0]
-    tmax_arr = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), shape).reshape(-1)
-
+    tm = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), shape).reshape(-1)
     npad = ((n + chunk - 1) // chunk) * chunk
     if npad != n:
         o = jnp.concatenate([o, jnp.zeros((npad - n, 3), o.dtype)])
         d = jnp.concatenate([d, jnp.ones((npad - n, 3), d.dtype)])
-        tmax_arr = jnp.concatenate([tmax_arr, jnp.zeros(npad - n, jnp.float32)])
+        tm = jnp.concatenate([tm, jnp.zeros(npad - n, jnp.float32)])
+    return shape, n, o, d, tm
 
-    one = jax.vmap(partial(_traverse_one, bvh, any_hit, t_min))
 
-    if npad == chunk:
-        t, tid = one(o, d, tmax_arr)
-    else:
-        o = o.reshape(-1, chunk, 3)
-        d = d.reshape(-1, chunk, 3)
-        tm = tmax_arr.reshape(-1, chunk)
-        t, tid = jax.lax.map(lambda args: one(*args), (o, d, tm))
-        t = t.reshape(-1)
-        tid = tid.reshape(-1)
+def _chunked_map(one, o, d, tm, chunk: int):
+    """Apply the vmapped walk ``one`` in ``chunk``-ray blocks (lax.map), so
+    live memory stays O(chunk * stack) regardless of resolution — the
+    long-axis blocking strategy from SURVEY.md §5."""
+    if o.shape[0] == chunk:
+        return one(o, d, tm)
+    res = jax.lax.map(lambda args: one(*args),
+                      (o.reshape(-1, chunk, 3), d.reshape(-1, chunk, 3),
+                       tm.reshape(-1, chunk)))
+    return tuple(r.reshape(-1) for r in res)
 
-    return t[:n].reshape(shape), tid[:n].reshape(shape)
+
+# Wide walk: per-ray stack capacity and the clamp that keeps slab products
+# NaN-free (0 * 3.4e38 = 0, where 0 * inf would be NaN). The CUDA kernel
+# uses the same clamp, so both resolve axis-parallel rays identically.
+WIDE_STACK_DEPTH = 64
+_BIG = 3.4e38
+
+
+def wide_iteration_cap(num_wide: int) -> int:
+    """Upper bound on the wide walk's pops for a tree of ``num_wide`` rows:
+    each node is pushed at most once per ray, and each pushes at most 8
+    entries (nodes or leaves). A walk past it is corrupt."""
+    return 9 * num_wide + 64
+
+
+def _wide_walk_one(wide, any_hit: bool, t_min, o, d, t_max):
+    """Single-ray walk over WideBVH rows (vmapped by the caller).
+
+    Both internal nodes and leaves are stack entries (leaf l as -(l+1), the
+    row encoding): each iteration pops one entry and either tests its k
+    triangles or slab-tests its 8 child slots. Hit children are pushed
+    farthest-first, so the nearest pops next and ``best_t`` culls the rest.
+    Returns (t, sorted triangle index, error flag)."""
+    k = wide.leaf_size
+    cap = wide_iteration_cap(wide.num_wide)
+    inv = jnp.clip(1.0 / d, -_BIG, _BIG)
+    slots = jnp.arange(8, dtype=jnp.int32)
+
+    def body(state):
+        stack, sp, best_t, best_i, it, err = state
+        sp = sp - 1
+        ref = stack[sp]
+        is_leaf = ref < 0
+        # Leaf entry: Möller–Trumbore over the row's k triangles.
+        leaf = jnp.maximum(-ref - 1, 0)
+        tri = wide.tris[leaf, :9 * k].reshape(k, 3, 3)
+        t = moller_trumbore_t(o[None, :], d[None, :], tri[:, 0], tri[:, 1],
+                              tri[:, 2])
+        t = jnp.where((t > t_min) & (t < best_t), t, jnp.inf)
+        j = jnp.argmin(t)
+        better = is_leaf & (t[j] < best_t)
+        best_t = jnp.where(better, t[j], best_t)
+        best_i = jnp.where(better, leaf * k + j.astype(jnp.int32), best_i)
+        # Node entry: slab test all 8 slots; inverted (empty) boxes never
+        # count as hit, whatever the slab arithmetic says.
+        rec = wide.nodes[jnp.maximum(ref, 0)].reshape(8, 16)
+        bmin, bmax = rec[:, 0:3], rec[:, 3:6]
+        t0 = (bmin - o) * inv
+        t1 = (bmax - o) * inv
+        enter = jnp.maximum(jnp.max(jnp.minimum(t0, t1), axis=-1), t_min)
+        exit_ = jnp.minimum(jnp.min(jnp.maximum(t0, t1), axis=-1), best_t)
+        hit = (~is_leaf) & (enter <= exit_) & (bmin[:, 0] <= bmax[:, 0])
+        # Farthest first, misses last; push the hits on top of the stack.
+        perm = jnp.argsort(jnp.where(hit, -enter, jnp.inf))
+        nhit = jnp.sum(hit.astype(jnp.int32))
+        pos = jnp.where(slots < nhit, sp + slots, WIDE_STACK_DEPTH)
+        pos = jnp.where(pos < WIDE_STACK_DEPTH, pos, WIDE_STACK_DEPTH)
+        stack = stack.at[pos].set(rec[perm, 6].astype(jnp.int32),
+                                  mode="drop")
+        err = err | (sp + nhit > WIDE_STACK_DEPTH)
+        sp = jnp.minimum(sp + nhit, WIDE_STACK_DEPTH)
+        return stack, sp, best_t, best_i, it + 1, err
+
+    def cond(state):
+        _, sp, _, best_i, it, _ = state
+        alive = (sp > 0) & (it < cap)
+        if any_hit:
+            alive = alive & (best_i < 0)
+        return alive
+
+    # Carry inits derive from the ray so they inherit its sharding
+    # varying-ness under shard_map(check_vma=True).
+    zf = o[0] * 0.0
+    zi = zf.astype(jnp.int32)
+    active = t_max > t_min
+    init = (jnp.zeros((WIDE_STACK_DEPTH,), jnp.int32) + zi,
+            active.astype(jnp.int32) + zi, t_max + zf, jnp.int32(-1) + zi,
+            zi, zi > 0)
+    _, sp, best_t, best_i, it, err = jax.lax.while_loop(cond, body, init)
+    # Out of iterations with work left (and, for any-hit, nothing found).
+    unfinished = (sp > 0) & (it >= cap)
+    if any_hit:
+        unfinished = unfinished & (best_i < 0)
+    best_t = jnp.where(best_i >= 0, best_t, jnp.inf)
+    return best_t, best_i, err | unfinished
+
+
+@partial(jax.jit, static_argnames=("any_hit", "chunk"))
+def traverse_wide(wide, origins: jnp.ndarray, dirs: jnp.ndarray,
+                  t_min: float = 0.0, t_max=jnp.inf, any_hit: bool = False,
+                  chunk: int = 16384):
+    """Trace rays against a ``WideBVH`` in plain XLA.
+
+    origins/dirs: f32[..., 3]; t_max: scalar or [...] per-ray (rays with
+    t_max <= t_min are inactive and miss). Returns (t f32[...], sorted
+    triangle index i32[...], errors i32[]): misses are (inf, -1); the
+    index keys the sorted-order tables (``wide.tri_id``, the shade table);
+    ``errors`` counts rays whose walk overflowed the stack or hit the
+    iteration cap. With any_hit=True the t is *a* hit, not necessarily the
+    closest.
+    """
+    shape, n, o, d, tm = _flatten_rays(origins, dirs, t_max, chunk)
+    one = jax.vmap(partial(_wide_walk_one, wide, any_hit, t_min))
+    t, sidx, err = _chunked_map(one, o, d, tm, chunk)
+    errors = jnp.sum(err[:n].astype(jnp.int32))
+    return t[:n].reshape(shape), sidx[:n].reshape(shape), errors

@@ -1,6 +1,6 @@
 """Camera ray generation and view/projection math.
 
-TPU-native replacement for the reference's vertex-shader rasterization setup
+The replacement for the reference's vertex-shader rasterization setup
 (Model.vert view/proj matrices + Rush CameraManipulator [RECALL]): instead of
 rasterizing, the G-buffer pass casts one primary ray per pixel, so the camera's
 job here is to produce a batched ray grid as arrays.

@@ -1,6 +1,6 @@
 """Wavefront OBJ loading (and writing, for test round-trips).
 
-TPU-native replacement for the reference's model pipeline
+The replacement for the reference's model pipeline
 (tiny_obj_loader parse -> vertex dedup -> interleaved vertex buffer + 32-bit
 index buffer, in ``loadModel()`` of Source/RayTracedShadows.cpp [RECALL;
 reference mount was empty at survey time]).

@@ -2,9 +2,9 @@
 
 Covers the host-side work where native code pays off — OBJ parsing and the
 CPU golden-oracle BVH build — mirroring the reference's native layer
-(tiny_obj_loader + Source/BVHBuilder.cpp [RECALL]). The TPU compute path
-stays JAX/Pallas; every entry point here has a pure-Python fallback, so the
-library is optional (built on demand with g++ via native/Makefile).
+(tiny_obj_loader + Source/BVHBuilder.cpp [RECALL]). The device path stays
+JAX; every entry point here has a pure-Python fallback, so the library is
+optional (built on demand with g++ via native/Makefile).
 """
 
 from __future__ import annotations
@@ -12,39 +12,50 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sys
 from typing import Optional, Tuple
 
 import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libtpurt_native.so")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libhost_native.so")
 _lib = None
 _lib_failed = False
 
 
 def _try_build() -> bool:
+    """Run the library's make target (a no-op when it is up to date, so a
+    source edit never leaves a stale library loaded). Failures are printed:
+    callers fall back visibly, never silently."""
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True, timeout=120)
-        return os.path.exists(_LIB_PATH)
-    except Exception:
+        proc = subprocess.run(["make", "-C", _NATIVE_DIR], capture_output=True,
+                              text=True, timeout=120)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        print(f"tpurt: cannot build {_LIB_PATH}: {e}", file=sys.stderr)
         return False
+    if proc.returncode != 0:
+        print(f"tpurt: building {_LIB_PATH} failed:\n{proc.stderr}",
+              file=sys.stderr)
+        return False
+    return os.path.exists(_LIB_PATH)
 
 
 def load_library() -> Optional[ctypes.CDLL]:
-    """Load (building if needed) the native library; None if unavailable."""
+    """Load (building or rebuilding if needed) the native library; None if
+    unavailable."""
     global _lib, _lib_failed
     if _lib is not None:
         return _lib
     if _lib_failed:
         return None
-    if not os.path.exists(_LIB_PATH) and not _try_build():
+    if not _try_build():
         _lib_failed = True
         return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+    except OSError as e:
+        print(f"tpurt: cannot load {_LIB_PATH}: {e}", file=sys.stderr)
         _lib_failed = True
         return None
     c_float_p = ctypes.POINTER(ctypes.c_float)

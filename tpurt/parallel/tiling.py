@@ -1,12 +1,12 @@
 """Multi-chip scaling: pixel-tile data parallelism over a device mesh.
 
 The reference is single-GPU; its only parallelism is SIMT threads in a
-dispatch (SURVEY.md §2.4). The TPU-native scaling story is embarrassingly
-parallel DP over the pixel grid: shard image rows across a 1-D mesh axis
-("tiles"), replicate scene + BVH on every chip, render each shard locally,
-and let the output sharding reassemble the frame. The only collective is the
-implicit all-gather when the caller consumes the image — rays are
-independent, so no ring/psum machinery is needed (SURVEY.md §5).
+dispatch (SURVEY.md §2.4). The scaling story here is embarrassingly parallel
+DP over the pixel grid: shard image rows across a 1-D mesh axis ("tiles"),
+replicate scene + BVH on every device, render each shard locally, and let
+the output sharding reassemble the frame. The collectives are the implicit
+all-gather when the caller consumes the image and one scalar psum of the
+walk-error count — rays are independent (SURVEY.md §5).
 
 Soft-shadow RNG folds in the mesh axis index so shards draw decorrelated
 jitter.
@@ -15,17 +15,14 @@ jitter.
 from __future__ import annotations
 
 from functools import partial
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..bvh.lbvh import LBVH
 from ..camera import generate_rays
-from ..passes.composite import composite_pass
-from ..passes.shadow import shadow_pass
 from ..types import Camera, Light, Mesh as TriMesh, RenderConfig
 
 
@@ -34,163 +31,33 @@ def make_tile_mesh(devices: Optional[Sequence] = None) -> Mesh:
     return Mesh(np.array(devices), ("tiles",))
 
 
-def vma_check_enabled(cfg: "RenderConfig") -> bool:
-    """Whether the sharded render runs with ``check_vma=True``.
-
-    True for the pure-JAX path and for compiled (TPU) Pallas kernels. The
-    ONE excluded combination is Pallas INTERPRET mode (CPU testing): JAX's
-    HLO interpreter does not propagate varying-manual-axes onto
-    kernel-internal values, so any interpret pallas_call under a
-    ``check_vma=True`` shard_map fails with "Primitive ... requires varying
-    manual axes to match". Re-verified broken on jax 0.9.0; minimal repro
-    lives in tests/test_sharding.py::test_vma_interpret_pallas_canary,
-    which is a STRICT xfail — when a JAX upgrade fixes the interpreter,
-    that test xpasses and this exclusion should be deleted."""
-    from ..kernels.traverse import _compiled_backend
-    return not (cfg.use_pallas and not _compiled_backend())
-
-
-def _local_frame(trace_closest, trace_any, tri_mesh: TriMesh, cam: Camera,
-                 lights, key, cfg: RenderConfig, bvh: LBVH,
-                 origins, dirs, shade_table=None, shade_table_orig=None,
-                 attr_tables=None, band_tiles: int = 0) -> jnp.ndarray:
+def _local_frame(tri_mesh: TriMesh, cam: Camera, lights, key, bvh,
+                 shade_table, origins, dirs, *, cfg: RenderConfig):
     """Render the local row-shard. Runs inside shard_map: everything except
-    (origins, dirs) is replicated. Honors the SAME primary-visibility
-    strategies as render_frame_fn — tile raster (sort-middle: each chip
-    bins + rasters its own band of tile rows), shade-table ray cast, or
-    plain ray cast (also the chunked-accel route via make_tracers) — and
-    the fused soft-shadow kernel where available."""
-    from ..app import (make_point_soft_tracer, make_soft_tracer,
-                       use_raster_gbuffer)
-    from ..bvh.chunked import ChunkedAccel
-    from ..bvh.wide import WideBVH, order_children_for_point
-    idx = jax.lax.axis_index("tiles")
-    key = jax.random.fold_in(key, idx)
-    vis0 = None                     # light-0 visibility from the fused path
-    vis_all = None                  # all-hard-lights fused visibilities
-    if use_raster_gbuffer(cfg) and shade_table_orig is not None \
-            and band_tiles > 0:
-        from ..passes.gbuffer import gbuffer_raster_pass
-        gbuf = gbuffer_raster_pass(
-            tri_mesh, cam, cfg.width, cfg.height, shade_table_orig,
-            cap_pairs=cfg.raster_cap_pairs or None,
-            rays=(origins, dirs),
-            tile_rows=(idx * band_tiles, band_tiles),
-            deferred=cfg.raster_deferred)
-    else:
-        from ..app import (fused_multi_applicable, fused_shadow_applicable,
-                           fused_soft_multi_applicable,
-                           gbuffer_multi_shadow_fused_production,
-                           gbuffer_shadow_fused_production,
-                           gbuffer_soft_multi_shadow_fused_production)
-        tabs = shade_table is not None or attr_tables is not None
-        if (tabs and not isinstance(bvh, ChunkedAccel)
-                and fused_multi_applicable(cfg, bvh, lights)):
-            # All-hard light set: one kernel yields every light's shadow
-            # for this shard's band (same path as render_frame_fn).
-            gbuf, vis_all = gbuffer_multi_shadow_fused_production(
-                bvh, tri_mesh, cam, cfg, lights, shade_table,
-                rays=(origins, dirs), attr_tables=attr_tables)
-        elif (tabs and not isinstance(bvh, ChunkedAccel)
-                and fused_soft_multi_applicable(cfg, bvh, lights)):
-            # Soft light 0 + hard directional extras, one kernel.
-            gbuf, vis_all = gbuffer_soft_multi_shadow_fused_production(
-                bvh, tri_mesh, cam, cfg, lights, shade_table,
-                key=jax.random.fold_in(key, 0), rays=(origins, dirs),
-                attr_tables=attr_tables)
-        elif (tabs and not isinstance(bvh, ChunkedAccel)
-                and fused_shadow_applicable(cfg, bvh, lights)):
-            # Fused primary+shadow kernel for light 0 on this shard's
-            # band — the same production path as render_frame_fn.
-            gbuf, vis0 = gbuffer_shadow_fused_production(
-                bvh, tri_mesh, cam, cfg, lights[0], shade_table,
-                key=jax.random.fold_in(key, 0), rays=(origins, dirs),
-                attr_tables=attr_tables)
-        elif (attr_tables is not None and cfg.use_pallas
-                and isinstance(bvh, WideBVH)):
-            # Attribute-tracked closest hit on this shard's band — the
-            # production zero-gather path (same as gbuffer_production).
-            from ..passes.gbuffer import gbuffer_attr_pass
-            gb_accel = order_children_for_point(bvh, cam.position)
-            gbuf = gbuffer_attr_pass(gb_accel, attr_tables, tri_mesh, cam,
-                                     cfg.width, origins.shape[0],
-                                     rays=(origins, dirs))
-        else:
-            from ..passes.gbuffer import gbuffer_pass
-            gb_accel = bvh
-            if isinstance(bvh, WideBVH):
-                gb_accel = order_children_for_point(bvh, cam.position)
-            if shade_table is not None and cfg.use_pallas \
-                    and not isinstance(bvh, ChunkedAccel):
-                from ..kernels.traverse import trace_closest_pallas
-
-                def tracer(o, d):
-                    return trace_closest_pallas(gb_accel, o, d, cfg=cfg,
-                                                return_sorted=True,
-                                                gather_tri_id=False)
-            else:
-                def tracer(o, d):
-                    return trace_closest(gb_accel, o, d)
-            gbuf = gbuffer_pass(tracer, tri_mesh, cam, cfg.width,
-                                origins.shape[0], rays=(origins, dirs),
-                                shade_table=shade_table if cfg.use_pallas
-                                else None)
-    if tri_mesh.textured and vis0 is None and vis_all is None:
-        # (the fused helper already applied textures to its gbuf)
-        from ..passes.texture import apply_textures
-        gbuf = {**gbuf, "albedo": apply_textures(tri_mesh, gbuf)}
-    img = None
-    for li, light in enumerate(lights):
-        if vis_all is not None:
-            mask = vis_all[li]
-        elif li == 0 and vis0 is not None:
-            mask = vis0
-        else:
-            mask = shadow_pass(
-                lambda o, d, tm: trace_any(bvh, o, d, tm), gbuf,
-                light, cfg.spp, jax.random.fold_in(key, li),
-                cfg.shadow_bias,
-                scene_bounds=(bvh.root_min, bvh.root_max),
-                trace_soft=make_soft_tracer(cfg, bvh),
-                trace_soft_point=make_point_soft_tracer(cfg, bvh))
-        contrib = composite_pass(gbuf, mask, light,
-                                 cfg.ambient if li == 0 else 0.0,
-                                 cfg.background if li == 0 else (0, 0, 0))
-        if img is None:
-            img = contrib
-        else:
-            img = jnp.where(gbuf["valid"][..., None], img + contrib, img)
-    # Raster pair-capacity overflow for THIS shard's band (False on the
-    # ray-cast paths): surfaced so the caller can retry with a bigger cap
-    # instead of silently shipping a frame with dropped triangles.
-    ovf = gbuf.get("raster_overflow", False)
-    ovf = jnp.reshape(jnp.asarray(ovf, jnp.bool_), (1,))
-    return img, ovf
+    (origins, dirs) is replicated. The frame is the single-device one
+    (app.render_frame_fn) on this shard's band of rays; the RNG key folds
+    in the shard index so soft-shadow jitter decorrelates across shards.
+    Returns (image band, walk errors summed over all shards)."""
+    from ..app import render_frame_fn
+    key = jax.random.fold_in(key, jax.lax.axis_index("tiles"))
+    out = render_frame_fn(bvh, tri_mesh, cam, lights, key, cfg, shade_table,
+                          rays=(origins, dirs))
+    return out["image"], jax.lax.psum(out["trace_errors"], "tiles")
 
 
-def render_frame_sharded(bvh: LBVH, tri_mesh: TriMesh, cam: Camera,
-                         lights, key, cfg: RenderConfig,
-                         mesh: Optional[Mesh] = None,
-                         shade_table=None,
-                         shade_table_orig=None,
-                         attr_tables=None,
-                         return_overflow: bool = False):
+def render_frame_sharded(bvh, tri_mesh: TriMesh, cam: Camera, lights, key,
+                         cfg: RenderConfig, mesh: Optional[Mesh] = None,
+                         shade_table=None, rays=None):
     """Render one frame with image rows sharded over the mesh's "tiles" axis.
 
-    Returns the assembled f32[H, W, 3] image (sharded jax.Array; converting
-    to numpy performs the final gather). Optional shade tables select the
-    same fast shading paths as render_frame_fn: ``shade_table`` (sorted-id,
-    passes/shading.make_shade_table) for the ray-cast G-buffer,
-    ``shade_table_orig`` to enable the per-band tile rasterizer when
-    cfg.gbuffer resolves to raster.
-
-    return_overflow=True additionally returns bool[n_shards] raster
-    pair-capacity overflow flags (all-False on ray-cast paths). A True
-    flag means that shard's band dropped triangles this frame — re-render
-    with a doubled cfg.raster_cap_pairs, exactly like Renderer's
-    single-chip retry (app.py render_frame).
+    Returns (f32[H, W, 3] image, i32[] walk errors): the image is a sharded
+    jax.Array (converting it to numpy performs the final gather).
+    ``shade_table`` (passes/shading.make_shade_table of the accel's LBVH)
+    is required on the 8-wide accel, as for render_frame_fn. ``rays``:
+    optional full-frame (origins, dirs), as render_frame_fn takes them —
+    the same rays give the same image on any device count. The traversal
+    (CUDA kernel or XLA walk) runs inside shard_map with check_vma=True.
     """
-    from ..app import make_tracers, use_raster_gbuffer
     if mesh is None:
         mesh = make_tile_mesh()
     n = mesh.devices.size
@@ -199,37 +66,24 @@ def render_frame_sharded(bvh: LBVH, tri_mesh: TriMesh, cam: Camera,
     lights = tuple(lights)
 
     h, w = cfg.height, cfg.width
-    raster = use_raster_gbuffer(cfg) and shade_table_orig is not None
-    # The rasterizer renders whole 32-pixel tile rows, so under raster each
-    # shard's band must be tile-aligned.
-    unit = n * 32 if raster else n
-    hpad = -(-h // unit) * unit
-    band_tiles = (hpad // n) // 32 if raster else 0
-    origins, dirs = generate_rays(cam, w, h)
+    hpad = -(-h // n) * n
+    origins, dirs = rays if rays is not None else generate_rays(cam, w, h)
     if hpad != h:
         origins = jnp.concatenate(
             [origins, jnp.zeros((hpad - h, w, 3), origins.dtype)])
         dirs = jnp.concatenate(
             [dirs, jnp.ones((hpad - h, w, 3), dirs.dtype)])
 
-    trace_closest, trace_any = make_tracers(cfg)
-
-    local = partial(_local_frame, trace_closest, trace_any)
     fn = jax.shard_map(
-        lambda tm, c, ls, k, bv, st, sto, at, o, d: local(
-            tm, c, ls, k, cfg, bv, o, d, shade_table=st,
-            shade_table_orig=sto, attr_tables=at, band_tiles=band_tiles),
+        partial(_local_frame, cfg=cfg),
         mesh=mesh,
-        in_specs=(P(), P(), P(), P(), P(), P(), P(), P(), P("tiles"),
-                  P("tiles")),
-        out_specs=(P("tiles"), P("tiles")),
-        check_vma=vma_check_enabled(cfg),  # see the helper's docstring
+        in_specs=(P(), P(), P(), P(), P(), P(), P("tiles"), P("tiles")),
+        out_specs=(P("tiles"), P()),
+        check_vma=True,
     )
-    img, overflow = fn(tri_mesh, cam, lights, key, bvh, shade_table,
-                       shade_table_orig, attr_tables, origins, dirs)
-    if return_overflow:
-        return img[:h], overflow
-    return img[:h]
+    img, errors = fn(tri_mesh, cam, lights, key, bvh, shade_table, origins,
+                     dirs)
+    return img[:h], errors
 
 
 def device_put_replicated(tree, mesh: Mesh):

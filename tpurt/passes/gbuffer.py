@@ -2,14 +2,13 @@
 
 Replaces the reference's raster G-buffer (Model.vert/Model.frag writing world
 position, normal, albedo, depth [RECALL]) with a closest-hit ray cast through
-the same BVH — the idiomatic TPU route per BASELINE.json ("primary visibility
-... run as batched JAX passes"), reusing the traversal kernel instead of
-emulating a rasterizer.
+the same BVH (BASELINE.json: "primary visibility ... run as batched JAX
+passes"), reusing the traversal instead of emulating a rasterizer.
 
 Outputs a dict of image-shaped arrays:
   position f32[H,W,3], normal f32[H,W,3] (smooth), gnormal f32[H,W,3]
   (geometric, for shadow bias), albedo f32[H,W,3], depth f32[H,W],
-  t f32[H,W], tri_id i32[H,W], valid bool[H,W]
+  t f32[H,W], tri_id i32[H,W], valid bool[H,W], trace_errors i32[]
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ from typing import Callable, Dict
 
 import jax.numpy as jnp
 
-from ..camera import camera_basis, generate_rays, normalize, view_depth
+from ..camera import generate_rays, normalize, view_depth
 from ..types import Camera, Mesh
 
 
@@ -55,269 +54,43 @@ def shade_attributes(mesh: Mesh, tri_id: jnp.ndarray, position: jnp.ndarray,
     }
 
 
-def gbuffer_raster_pass(mesh: Mesh, cam: Camera, width: int, height: int,
-                        shade_table_orig=None,
-                        cap_pairs: int | None = None,
-                        interpret=None,
-                        rays=None,
-                        tile_rows=None,
-                        deferred: bool = False) -> Dict[str, jnp.ndarray]:
-    """Primary visibility by TILE RASTERIZATION (the reference's actual
-    G-buffer strategy — Model.vert/Model.frag [RECALL]) instead of a
-    closest-hit ray cast. Same output contract as gbuffer_pass.
-
-    v2 design: the 32-float setup records carry vertex normals, geometric
-    normal and albedo, and the kernel's z-fight selects the shading
-    attributes directly — the G-buffer needs NO per-pixel row gather
-    afterwards (XLA row gathers measured ~400 ms/1M rows on a v5e; position
-    reconstructs from 1/w and the view ray). shade_table_orig is accepted
-    and ignored for call-site compatibility.
-
-    The dict gains "raster_overflow": True if the static pair capacity
-    dropped work this frame (callers re-run with a bigger cap; the
-    Renderer handles this like the wide-BVH pad overflow).
-
-    rays/tile_rows: per-shard viewport rendering (sort-middle parallel
-    raster under shard_map — SURVEY.md §2.4): ``tile_rows=(tr0, band)``
-    bins + rasters only the ``band`` 32-pixel tile rows starting at
-    global tile row ``tr0`` (tr0 may be traced), and ``rays`` supplies
-    the band's (origins, dirs) for position reconstruction; width/height
-    remain the FULL frame dims.
-
-    deferred=True (requires shade_table_orig): v3 design — the kernel
-    streams HALF-width z-only records (11 lane reads per record instead
-    of 27) and emits just (tri, u, v, 1/w); shading attributes come from
-    ONE per-pixel gather of the packed shade table, the same merged-fetch
-    pattern the ray-cast G-buffer uses. Separates visibility (eval-bound
-    kernel) from shading (gather-bound post-pass)."""
-    if deferred and shade_table_orig is not None:
-        return _gbuffer_raster_deferred(mesh, cam, width, height,
-                                        shade_table_orig, cap_pairs,
-                                        interpret, rays, tile_rows)
-    from ..kernels.raster import TILE, rasterize_rows
-    from ..raster.setup import bin_rows, default_cap_rows
-    if cap_pairs is None:
-        cap_pairs = default_cap_rows(mesh.num_triangles)
-    bins = bin_rows(cam, mesh, width, height, cap_pairs,
-                    tile_rows=tile_rows)
-    if tile_rows is None:
-        tri_id, at = rasterize_rows(bins, width, height,
-                                    interpret=interpret)
-    else:
-        tr0, band = tile_rows
-        tri_id, at = rasterize_rows(bins, width, int(band) * TILE,
-                                    interpret=interpret, ty_off=tr0,
-                                    full_height=height)
-    valid = tri_id >= 0
-    invw = at[2]
-    if rays is None:
-        origins, dirs = generate_rays(cam, width, height)
-    else:
-        origins, dirs = rays
-        # The band may be shorter than the raster's tile-aligned height.
-        tri_id = tri_id[:origins.shape[0]]
-        at = at[:, :origins.shape[0]]
-        valid = valid[:origins.shape[0]]
-        invw = invw[:origins.shape[0]]
-    _, _, forward = camera_basis(cam)
-    depth = jnp.where(valid, 1.0 / jnp.maximum(invw, 1e-30), cam.zfar)
-    t = jnp.where(valid, depth / jnp.maximum(
-        jnp.einsum("...k,k->...", dirs, forward), 1e-6), jnp.inf)
-    t_safe = jnp.where(valid, t, 0.0)
-    position = origins + dirs * t_safe[..., None]
-    smooth = jnp.stack([at[3], at[4], at[5]], axis=-1)
-    gnormal = jnp.stack([at[6], at[7], at[8]], axis=-1)
-    albedo = jnp.stack([at[9], at[10], at[11]], axis=-1)
-    facing = jnp.sign(-jnp.sum(gnormal * dirs, axis=-1, keepdims=True))
-    flip = jnp.where(facing == 0, 1.0, facing)
-    return {
-        "position": position,
-        "normal": smooth * flip,
-        "gnormal": gnormal * flip,
-        "albedo": albedo,
-        "depth": depth.astype(jnp.float32),
-        "t": t.astype(jnp.float32),
-        "tri_id": tri_id,
-        "valid": valid,
-        "view_dir": dirs,
-        "raster_overflow": bins.overflow,
-    }
-
-
-def _gbuffer_raster_deferred(mesh: Mesh, cam: Camera, width: int,
-                             height: int, shade_table_orig,
-                             cap_pairs, interpret, rays,
-                             tile_rows) -> Dict[str, jnp.ndarray]:
-    """v3 raster G-buffer: z-only kernel + one shade-table gather.
-
-    Position is reconstructed EXACTLY from the winning triangle's table row
-    (v0 + u*e1 + v*e2 with the kernel's perspective-correct barycentrics)
-    instead of from 1/w and the view ray — no depth/direction round trip."""
-    from ..kernels.raster import TILE, rasterize_rows16
-    from ..raster.setup import bin_rows, default_cap_rows
-    from .shading import shade_from_table_uv
-    if cap_pairs is None:
-        cap_pairs = default_cap_rows(mesh.num_triangles)
-    bins = bin_rows(cam, mesh, width, height, cap_pairs,
-                    tile_rows=tile_rows, fmt="z16")
-    if tile_rows is None:
-        tri_id, u, v, invw = rasterize_rows16(bins, width, height,
-                                              interpret=interpret)
-    else:
-        tr0, band = tile_rows
-        tri_id, u, v, invw = rasterize_rows16(
-            bins, width, int(band) * TILE, interpret=interpret,
-            ty_off=tr0, full_height=height)
-    valid = tri_id >= 0
-    if rays is not None:
-        origins, _ = rays
-        tri_id = tri_id[:origins.shape[0]]
-        u = u[:origins.shape[0]]
-        v = v[:origins.shape[0]]
-        invw = invw[:origins.shape[0]]
-        valid = valid[:origins.shape[0]]
-    rows = shade_table_orig[jnp.clip(tri_id, 0,
-                                     shade_table_orig.shape[0] - 1)]
-    attrs = shade_from_table_uv(rows, u, v, valid)
-    position = rows[..., 0:3] + u[..., None] * rows[..., 3:6] \
-        + v[..., None] * rows[..., 6:9]
-    position = jnp.where(valid[..., None], position, 0.0)
-    depth = jnp.where(valid, 1.0 / jnp.maximum(invw, 1e-30), cam.zfar)
-    # View vector straight from the hit position: no per-pixel ray
-    # generation anywhere in this path (sign/normalization match the
-    # ray-based formulation on valid pixels; invalid pixels are masked),
-    # so fused frames that never read t/view_dir carry ZERO ray-gen work.
-    vview = position - cam.position
-    t = jnp.where(valid, jnp.linalg.norm(vview, axis=-1), jnp.inf)
-    view_dir = vview / jnp.maximum(t, 1e-20)[..., None]
-    facing = jnp.sign(-jnp.sum(attrs["gnormal"] * vview, axis=-1,
-                               keepdims=True))
-    flip = jnp.where(facing == 0, 1.0, facing)
-    return {
-        "position": position,
-        "normal": attrs["normal"] * flip,
-        "gnormal": attrs["gnormal"] * flip,
-        "albedo": attrs["albedo"],
-        "depth": depth.astype(jnp.float32),
-        "t": t.astype(jnp.float32),
-        "tri_id": tri_id,
-        "valid": valid,
-        "view_dir": view_dir,
-        "raster_overflow": bins.overflow,
-    }
-
-
-def gbuffer_attr_pass(bvh, attr_tables, mesh: Mesh, cam: Camera,
-                      width: int, height: int,
-                      jitter: jnp.ndarray | None = None,
-                      rays=None) -> Dict[str, jnp.ndarray]:
-    """G-buffer from the attribute-tracked closest-hit kernel: the
-    traversal tracks the winner's full shading attributes in registers
-    (kernels/traverse.trace_closest_attrs_pallas), so this pass does ZERO
-    per-pixel gathers — only elementwise decode (oct normals, packed rgb)
-    of what the kernel already selected. Same output contract as
-    gbuffer_pass; Pallas 8-wide accel only."""
-    from ..bvh.wide import WideBVHT
-    from ..kernels.traverse import (trace_closest_attrs_pallas,
-                                    trace_closest_attrs_pallas_t)
-    if rays is None:
-        origins, dirs = generate_rays(cam, width, height, jitter)
-    else:
-        origins, dirs = rays
-    at0, at1 = attr_tables
-    if isinstance(bvh, WideBVHT):
-        # Transposed-leaf accel: attr_tables must be the TRANSPOSED pair
-        # (shading.make_leaf_attr_rows_t).
-        ch = trace_closest_attrs_pallas_t(bvh, at0, at1, origins, dirs,
-                                          textured=mesh.textured)
-    else:
-        ch = trace_closest_attrs_pallas(bvh, at0, at1, origins, dirs,
-                                        textured=mesh.textured)
-    return gbuf_from_attr_channels(ch, origins, dirs, cam, mesh)
-
-
-def gbuf_from_attr_channels(ch, origins, dirs, cam: Camera,
-                            mesh: Mesh) -> Dict[str, jnp.ndarray]:
-    """Attr-channel dict (kernels/traverse._attr_channels contract) ->
-    full G-buffer: pure elementwise decode shared by gbuffer_attr_pass
-    and the fused primary+shadow attr productions."""
-    from .shading import oct_decode, unpack_rgb
-    valid = ch["sidx"] >= 0
-    t = ch["t"]
-    position = origins + dirs * jnp.where(valid, t, 0.0)[..., None]
-    n0 = oct_decode(ch["oct"][..., 0:2])
-    n1 = oct_decode(ch["oct"][..., 2:4])
-    n2 = oct_decode(ch["oct"][..., 4:6])
-    u, v = ch["u"], ch["v"]
-    smooth = normalize(n0 + u[..., None] * (n1 - n0)
-                       + v[..., None] * (n2 - n0))
-    gnormal = normalize(ch["gn"])
-    albedo = unpack_rgb(ch["kd"])
-    zeros = jnp.zeros_like(smooth)
-    vmask = valid[..., None]
-    smooth = jnp.where(vmask, smooth, zeros)
-    gnormal = jnp.where(vmask, gnormal, zeros)
-    albedo = jnp.where(vmask, albedo, zeros)
-    facing = jnp.sign(-jnp.sum(gnormal * dirs, axis=-1, keepdims=True))
-    flip = jnp.where(facing == 0, 1.0, facing)
-    extra = {}
-    if mesh.textured:
-        extra = {"uv": ch["uv"],
-                 "tex_layer": jnp.where(valid, ch["layer"], -1
-                                        ).astype(jnp.int32)}
-    return {
-        "position": position,
-        "normal": smooth * flip,
-        "gnormal": gnormal * flip,
-        "albedo": albedo,
-        "depth": view_depth(cam, position, valid),
-        "t": t,
-        "tri_id": ch["tri_id"],
-        "valid": valid,
-        "view_dir": dirs,
-        **extra,
-    }
-
-
 def gbuffer_pass(trace_closest: Callable, mesh: Mesh, cam: Camera,
                  width: int, height: int,
                  jitter: jnp.ndarray | None = None,
                  shade_table: jnp.ndarray | None = None,
                  rays=None) -> Dict[str, jnp.ndarray]:
-    """trace_closest(origins, dirs) -> (t, tri_id[, sorted_idx]); injected so
-    the same pass runs on the pure-JAX traversal or the Pallas kernel.
+    """trace_closest(origins, dirs) -> (t, tri_id | None, sorted_idx | None,
+    errors) (app.make_tracers); injected so the same pass runs on every
+    traversal route.
 
-    When a packed ``shade_table`` (passes/shading.py) is provided AND the
-    tracer returns the sorted hit index, all shading attributes come from a
-    SINGLE per-pixel gather instead of ~8 (row-gathers cost ~45-95 ms per
-    2M-pixel lookup on TPU).
+    Walks of the 8-wide accel return the sorted hit index and no tri_id:
+    the packed ``shade_table`` (passes/shading.py) then supplies every
+    shading attribute, tri_id included, in ONE per-pixel row gather. Walks
+    of the binary LBVH return the original tri_id, and attributes are
+    gathered from the mesh.
 
     rays: optional precomputed (origins, dirs) — the sharded path passes
-    its row-shard here instead of generating the full frame."""
+    its row-shard here instead of generating the full frame. The result
+    carries the tracer's walk-error count as ``trace_errors``."""
     if rays is None:
         origins, dirs = generate_rays(cam, width, height, jitter)
     else:
         origins, dirs = rays
-    res = trace_closest(origins, dirs)
-    sorted_idx = None
-    if len(res) == 3:
-        t, tri_id, sorted_idx = res
-    else:
-        t, tri_id = res
+    t, tri_id, sorted_idx, errors = trace_closest(origins, dirs)
     valid = (sorted_idx >= 0) if tri_id is None else (tri_id >= 0)
     t_safe = jnp.where(valid, t, 0.0)
     position = origins + dirs * t_safe[..., None]
     extra = {}
-    if shade_table is not None and sorted_idx is not None:
+    if sorted_idx is not None:
+        if shade_table is None:
+            raise ValueError("a sorted-index tracer needs the shade table "
+                             "of its accel's LBVH")
         from .shading import shade_from_table, table_tri_id, table_uv
         rows = shade_table[jnp.clip(sorted_idx, 0,
                                     shade_table.shape[0] - 1)]
         attrs = shade_from_table(rows, position, valid)
-        if tri_id is None:
-            # tri_id rides in the shading row (lane 16): no separate
-            # per-pixel gather.
-            tri_id = table_tri_id(rows, valid)
-        if mesh.textured and rows.shape[-1] >= 24:
+        tri_id = table_tri_id(rows, valid)
+        if mesh.textured:
             uv, layer = table_uv(rows, attrs["u"], attrs["v"])
             extra = {"uv": uv, "tex_layer": jnp.where(valid, layer, -1)}
     else:
@@ -338,5 +111,6 @@ def gbuffer_pass(trace_closest: Callable, mesh: Mesh, cam: Camera,
         "tri_id": tri_id,
         "valid": valid,
         "view_dir": dirs,
+        "trace_errors": errors,
         **extra,
     }

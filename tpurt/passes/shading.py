@@ -1,11 +1,11 @@
 """Packed per-triangle shading table: one gather instead of eight.
 
-XLA row-gathers on TPU cost ~45-95 ms per 2M-pixel lookup, and the naive
-G-buffer attribute fetch needs ~8 of them (triangle indices, three vertices,
-three vertex normals, albedo). This module packs everything shading needs
-into ONE f32[Tpad, 16] row per (Morton-sorted) triangle:
+The naive G-buffer attribute fetch needs ~8 per-pixel gathers (triangle
+indices, three vertices, three vertex normals, albedo). This module packs
+everything shading needs into ONE f32[Tpad, 24] row per (sorted) triangle:
 
-    [v0.xyz, e1.xyz, e2.xyz, oct(n0), oct(n1), oct(n2), albedo_u8x3]
+    [v0.xyz, e1.xyz, e2.xyz, oct(n0), oct(n1), oct(n2), albedo_u8x3,
+     tri_id, uv0, uv1, uv2, texture layer]
 
 so the whole fetch is a single gather keyed by the traversal's sorted hit
 index (spatially coherent across the image). Vertex normals are
@@ -80,10 +80,8 @@ def make_shade_table(bvh: LBVH, mesh: Mesh) -> jnp.ndarray:
         [0:9]   v0.xyz, e1.xyz, e2.xyz
         [9:15]  oct(n0), oct(n1), oct(n2)
         [15]    albedo as packed 8-bit rgb
-        [16]    ORIGINAL triangle id (int32 bit pattern) — per-pixel
-                gathers cost ~10 ns/row regardless of width, so riding
-                tri_id in the shading row makes the G-buffer's separate
-                2M-row tri_id gather free
+        [16]    ORIGINAL triangle id (int32 bit pattern) — riding in
+                the shading row, it needs no gather of its own
         [17:23] uv0, uv1, uv2 (textured meshes; zeros otherwise)
         [23]    texture layer as a float (-1 = untextured triangle)
     """
@@ -106,181 +104,6 @@ def make_shade_table(bvh: LBVH, mesh: Mesh) -> jnp.ndarray:
          layer], axis=1).astype(jnp.float32)
 
 
-ATTR_STRIDE = 16
-# Per-triangle attribute lane layout inside a leaf attr row (base 16*j):
-#   [0]   oct(n0) PACKED: 12-bit fixed point per component, exact float
-#   [1]   oct(n1) packed   (pack_oct12 — ints < 2^24, so the float VALUE
-#   [2]   oct(n2) packed    is exact; unpacked in XLA post, never in-kernel)
-#   [3]   packed 8-bit rgb albedo
-#   [4]   texture layer as float (-1 = untextured)
-#   [5:7] uv0    [7:9] uv1-uv0    [9:11] uv2-uv0
-#   [11]  ORIGINAL triangle id as an exact float VALUE (< 2^24)
-#   [12:16] pad
-# Scalar lane reads are THE attr-tracking cost (probe r3ae: extra row
-# loads and loop carries are ~free; each per-candidate vreg->sreg lane
-# extract is not), so the layout minimizes reads per candidate: packed
-# oct (3) + kd (1) + tid (1) untextured; + layer (1) + uv (6) textured.
-
-
-def pack_oct12(e: jnp.ndarray) -> jnp.ndarray:
-    """Octahedral pair [..., 2] in [-1, 1] -> ONE exact-integer float:
-    12-bit fixed point per component (q0*4096 + q1 < 2^24)."""
-    q = jnp.clip(jnp.round((e + 1.0) * (0.5 * 4095.0)), 0, 4095)
-    return q[..., 0] * 4096.0 + q[..., 1]
-
-
-def unpack_oct12(p: jnp.ndarray) -> jnp.ndarray:
-    """pack_oct12 inverse -> [..., 2] in [-1, 1] (quantized to 12 bits:
-    ~5e-4 per component, ~1e-3 rad of normal error — shading-grade)."""
-    hi = jnp.floor(p * (1.0 / 4096.0))
-    lo = p - hi * 4096.0
-    return jnp.stack([hi, lo], axis=-1) * (2.0 / 4095.0) - 1.0
-
-
-def _pack_attr_rows(rows16, num_leaves: int, k: int):
-    """[Tpad, 16] per-triangle attr rows -> the (at0, at1) leaf-row pair.
-    THE shared packing tail: make_leaf_attr_rows (static/gather path) and
-    leaf_attr_rows_from_sorted (rebuild/payload path) must stay
-    bit-identical (tests/test_lbvh.py pins it), so both call this."""
-    per_leaf = rows16.reshape(num_leaves, k * ATTR_STRIDE)
-    lo = per_leaf[:, :min(k, 8) * ATTR_STRIDE]
-    at0 = jnp.pad(lo, ((0, 0), (0, 128 - lo.shape[1])))
-    if k > 8:
-        hi = per_leaf[:, 8 * ATTR_STRIDE:]
-        at1 = jnp.pad(hi, ((0, 0), (0, 128 - hi.shape[1])))
-    else:
-        at1 = jnp.zeros((1, 128), jnp.float32)
-    return at0, at1
-
-
-def make_leaf_attr_rows(bvh: LBVH, mesh: Mesh):
-    """Leaf-major shading attributes for the in-kernel attribute-tracked
-    closest hit (kernels/traverse.trace_closest_attrs_pallas).
-
-    The per-pixel shade-table gather costs ~10 ns/row REGARDLESS of row
-    width (~23 ms for a 2M-pixel frame); laying the same attributes out
-    per LEAF lets the traversal kernel select the winner's attributes
-    while the candidate data is already in registers, eliminating that
-    gather entirely. Layout: two f32[n_leaves, 128] arrays — triangle
-    slots 0..7 of each leaf in ``at0`` (8 x 16 lanes), slots 8..13 in
-    ``at1`` (leaf_size <= 8 makes ``at1`` a (1, 128) dummy). See
-    ATTR_STRIDE lane map above.
-    """
-    k = bvh.leaf_size
-    assert k <= 14, "attr rows support leaf_size <= 14 (14*16 = 224 lanes)"
-    tri = mesh.indices[bvh.tri_id]            # [Tpad, 3]
-    n0 = pack_oct12(oct_encode(mesh.normals[tri[:, 0]]))[:, None]
-    n1 = pack_oct12(oct_encode(mesh.normals[tri[:, 1]]))[:, None]
-    n2 = pack_oct12(oct_encode(mesh.normals[tri[:, 2]]))[:, None]
-    alb = pack_rgb(mesh.albedo[bvh.tri_id])[:, None]
-    if mesh.textured:
-        uv0 = mesh.uv[tri[:, 0]]
-        d1 = mesh.uv[tri[:, 1]] - uv0
-        d2 = mesh.uv[tri[:, 2]] - uv0
-        layer = mesh.tri_tex[bvh.tri_id].astype(jnp.float32)[:, None]
-    else:
-        uv0 = jnp.zeros((tri.shape[0], 2), jnp.float32)
-        d1 = jnp.zeros((tri.shape[0], 2), jnp.float32)
-        d2 = jnp.zeros((tri.shape[0], 2), jnp.float32)
-        layer = jnp.full((tri.shape[0], 1), -1.0, jnp.float32)
-    tid = bvh.tri_id.astype(jnp.float32)[:, None]   # exact for < 2^24 tris
-    pad = jnp.zeros((tri.shape[0], 4), jnp.float32)
-    rows16 = jnp.concatenate(
-        [n0, n1, n2, alb, layer, uv0, d1, d2, tid, pad],
-        axis=1).astype(jnp.float32)                 # [Tpad, 16]
-    # Rows are per triangle BLOCK (= leaves except on sub-leaf clustered
-    # trees, whose kernel refs are block ids — lbvh.LBVH docstring).
-    return _pack_attr_rows(rows16, bvh.num_blocks, k)
-
-
-def make_leaf_attr_rows_t(bvh: LBVH, mesh: Mesh):
-    """TRANSPOSED (sublane-major) leaf attribute rows for the w8t
-    attribute-tracked closest hit (kernels/traverse
-    trace_closest_attrs_pallas_t) — the WideBVHT twin of
-    make_leaf_attr_rows.
-
-    Two arrays mirroring WideBVHT.tris_t's lane geometry exactly
-    (bvh/wide.transpose_leaf_rows), so the kernel aligns them with the
-    same _leaf_row_t roll it uses for geometry:
-
-      at0_t[blk, t, unit*j + 9h + f], f in 0..8:
-        [oct(n0) packed, oct(n1) packed, oct(n2) packed, packed rgb kd,
-         ORIGINAL tri id (exact float), layer, uv0.u, uv0.v, 0]
-      at1_t (textured only; else a (1, 8, 128) dummy):
-        [d1.u, d1.v, d2.u, d2.v, 0, 0, 0, 0, 0]   (d1 = uv1-uv0 etc.)
-
-    Why a second array: a transposed field slot holds 9 lanes per
-    (leaf, group), and textured tracking needs 12 fields. The kernel
-    reads at1_t only when ``textured``."""
-    k = bvh.leaf_size
-    tri = mesh.indices[bvh.tri_id]            # [Tpad, 3]
-    n0 = pack_oct12(oct_encode(mesh.normals[tri[:, 0]]))[:, None]
-    n1 = pack_oct12(oct_encode(mesh.normals[tri[:, 1]]))[:, None]
-    n2 = pack_oct12(oct_encode(mesh.normals[tri[:, 2]]))[:, None]
-    alb = pack_rgb(mesh.albedo[bvh.tri_id])[:, None]
-    tid = bvh.tri_id.astype(jnp.float32)[:, None]   # exact for < 2^24 tris
-    z1 = jnp.zeros((tri.shape[0], 1), jnp.float32)
-    from ..bvh.wide import transpose_leaf_rows
-    if mesh.textured:
-        uv0 = mesh.uv[tri[:, 0]]
-        d1 = mesh.uv[tri[:, 1]] - uv0
-        d2 = mesh.uv[tri[:, 2]] - uv0
-        layer = mesh.tri_tex[bvh.tri_id].astype(jnp.float32)[:, None]
-        rows_a = jnp.concatenate([n0, n1, n2, alb, tid, layer, uv0, z1],
-                                 axis=1).astype(jnp.float32)
-        rows_b = jnp.concatenate([d1, d2, z1, z1, z1, z1, z1],
-                                 axis=1).astype(jnp.float32)
-        return (transpose_leaf_rows(rows_a, k),
-                transpose_leaf_rows(rows_b, k))
-    layer = jnp.full((tri.shape[0], 1), -1.0, jnp.float32)
-    rows_a = jnp.concatenate([n0, n1, n2, alb, tid, layer, z1, z1, z1],
-                             axis=1).astype(jnp.float32)
-    return (transpose_leaf_rows(rows_a, k),
-            jnp.zeros((1, 8, 128), jnp.float32))
-
-
-def attr_payload_columns(mesh: Mesh):
-    """Per-triangle ORIGINAL-ORDER attr columns ([T] f32 each) to ride a
-    rebuild's Morton sort as payload operands (bvh/lbvh.build_lbvh
-    ``extra_payload``): packed oct normals x3 + packed kd, plus
-    layer/uv0/d1/d2 for textured meshes. Probe r3ac measured the
-    tri_id-keyed post-build gathers at ~16 ms of the Sponza rebuild
-    (they serialize after the sort); payload operands cost ~0.1 ms each
-    and the original-order gathers here overlap the build."""
-    tri = mesh.indices
-    cols = (pack_oct12(oct_encode(mesh.normals[tri[:, 0]])),
-            pack_oct12(oct_encode(mesh.normals[tri[:, 1]])),
-            pack_oct12(oct_encode(mesh.normals[tri[:, 2]])),
-            pack_rgb(mesh.albedo))
-    if mesh.textured:
-        uv0 = mesh.uv[tri[:, 0]]
-        d1 = mesh.uv[tri[:, 1]] - uv0
-        d2 = mesh.uv[tri[:, 2]] - uv0
-        cols += (mesh.tri_tex.astype(jnp.float32),
-                 uv0[:, 0], uv0[:, 1], d1[:, 0], d1[:, 1],
-                 d2[:, 0], d2[:, 1])
-    return cols
-
-
-def leaf_attr_rows_from_sorted(cols, tri_id, num_leaves: int, k: int,
-                               textured: bool):
-    """Assemble the (at0, at1) leaf attr rows from SORTED payload columns
-    (attr_payload_columns order) + the sorted original ids — the
-    rebuild-path twin of make_leaf_attr_rows (identical output)."""
-    tpad = tri_id.shape[0]
-    z = jnp.zeros((tpad,), jnp.float32)
-    if textured:
-        lay, u0u, u0v, d1u, d1v, d2u, d2v = cols[4:11]
-    else:
-        lay = jnp.full((tpad,), -1.0, jnp.float32)
-        u0u = u0v = d1u = d1v = d2u = d2v = z
-    rows16 = jnp.stack(
-        [cols[0], cols[1], cols[2], cols[3], lay,
-         u0u, u0v, d1u, d1v, d2u, d2v,
-         tri_id.astype(jnp.float32), z, z, z, z], axis=1)   # [Tpad, 16]
-    return _pack_attr_rows(rows16, num_leaves, k)
-
-
 def table_tri_id(rows: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
     """Original triangle ids out of gathered rows (lane 16); -1 invalid."""
     tid = jax.lax.bitcast_convert_type(rows[..., 16], jnp.int32)
@@ -294,42 +117,6 @@ def table_uv(rows: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray):
     uv2 = rows[..., 21:23]
     uv = uv0 + u[..., None] * (uv1 - uv0) + v[..., None] * (uv2 - uv0)
     return uv, rows[..., 23].astype(jnp.int32)
-
-
-def make_shade_table_orig(mesh: Mesh) -> jnp.ndarray:
-    """f32[T, 16] shading rows in ORIGINAL triangle order (no BVH) — the
-    rasterized G-buffer path keys by raw triangle id."""
-    tri = mesh.indices
-    v0 = mesh.vertices[tri[:, 0]]
-    v1 = mesh.vertices[tri[:, 1]]
-    v2 = mesh.vertices[tri[:, 2]]
-    n0 = oct_encode(mesh.normals[tri[:, 0]])
-    n1 = oct_encode(mesh.normals[tri[:, 1]])
-    n2 = oct_encode(mesh.normals[tri[:, 2]])
-    alb = pack_rgb(mesh.albedo)[:, None]
-    return jnp.concatenate(
-        [v0, v1 - v0, v2 - v0, n0, n1, n2, alb],
-        axis=1).astype(jnp.float32)
-
-
-def shade_from_table_uv(rows: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray,
-                        valid: jnp.ndarray):
-    """Like shade_from_table but with KNOWN barycentrics (the rasterizer
-    outputs exact perspective-correct u, v — no re-derivation needed)."""
-    n0 = oct_decode(rows[..., 9:11])
-    n1 = oct_decode(rows[..., 11:13])
-    n2 = oct_decode(rows[..., 13:15])
-    smooth = normalize(n0 + u[..., None] * (n1 - n0)
-                       + v[..., None] * (n2 - n0))
-    gnormal = normalize(jnp.cross(rows[..., 3:6], rows[..., 6:9]))
-    albedo = unpack_rgb(rows[..., 15])
-    zeros = jnp.zeros_like(smooth)
-    vmask = valid[..., None]
-    return {
-        "normal": jnp.where(vmask, smooth, zeros),
-        "gnormal": jnp.where(vmask, gnormal, zeros),
-        "albedo": jnp.where(vmask, albedo, zeros),
-    }
 
 
 def barycentrics_from_position(v0: jnp.ndarray, e1: jnp.ndarray,

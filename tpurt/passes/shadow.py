@@ -1,6 +1,6 @@
 """Shadow pass: per-pixel shadow rays from the G-buffer toward the light.
 
-The TPU-native equivalent of the reference's shadow dispatch
+The equivalent of the reference's shadow dispatch
 (Source/Shaders/RayTracedShadows.comp: one thread per pixel reads the
 G-buffer position, offsets it along the normal, fires an any-hit ray toward
 the directional light, writes a 0/1 mask [RECALL]). Extended per BASELINE
@@ -107,69 +107,36 @@ def shadow_ray_batch(gbuf: Dict[str, jnp.ndarray], light: Light,
 
 def shadow_pass(trace_any: Callable, gbuf: Dict[str, jnp.ndarray],
                 light: Light, spp: int, key: jax.Array,
-                bias: float, scene_bounds=None,
-                trace_soft: Callable | None = None,
-                trace_soft_point: Callable | None = None) -> jnp.ndarray:
-    """Shadow visibility in [0, 1] per pixel (1 = fully lit).
+                bias: float, scene_bounds=None):
+    """Shadow visibility in [0, 1] per pixel (1 = fully lit) and the walk
+    error count: (f32[H, W], i32[]).
 
-    trace_any(origins, dirs, t_max) -> occluded bool[...]. spp rays are
-    traced sequentially (static unroll) so live memory stays one ray-grid
-    regardless of sample count (SURVEY.md §5 long-axis blocking).
-
-    trace_soft(origins, valid, axis_dir, cone_cos, spp, seed) -> occlusion
-    counts i32: optional fused path that draws the cone samples INSIDE the
-    traversal kernel (kernels/traverse.trace_any_soft_pallas) — the scan
-    below pays ~5 ms/sample of XLA ray generation at 1080p, which the
-    in-kernel hardware PRNG eliminates. Used for area-cone lights when the
-    caller provides it (compiled-TPU Pallas path only).
-
-    trace_soft_point(origins, valid, light_pos, radius, spp, seed) -> the
-    same, for point-light penumbrae: in-kernel jittered-disk sampling
-    (kernels/traverse.trace_any_point_soft_pallas) replacing the scan for
-    the least-coherent workload family.
+    trace_any(origins, dirs, t_max) -> (occluded bool[...], errors). Soft
+    lights (area-cone, or point with a radius, at spp > 1) trace spp
+    jittered samples in a lax.scan — ONE traversal lowering regardless of
+    spp, and live memory stays one ray-grid (SURVEY.md §5 long-axis
+    blocking).
     """
     soft = light.kind in (LIGHT_AREA_CONE, LIGHT_POINT) and spp > 1
     h, w = gbuf["valid"].shape
     if not soft:
         origins, dirs, t_max = shadow_ray_batch(gbuf, light, bias, None,
                                                 scene_bounds=scene_bounds)
-        occluded = trace_any(origins, dirs, t_max)
-        return jnp.where(gbuf["valid"], jnp.where(occluded, 0.0, 1.0), 1.0)
+        occluded, errors = trace_any(origins, dirs, t_max)
+        vis = jnp.where(gbuf["valid"], jnp.where(occluded, 0.0, 1.0), 1.0)
+        return vis, errors
 
-    fused_cone = trace_soft is not None and light.kind == LIGHT_AREA_CONE
-    fused_point = (trace_soft_point is not None
-                   and light.kind == LIGHT_POINT)
-    if fused_cone or fused_point:
-        origins = gbuf["position"] + gbuf["gnormal"] * bias
-        # Any 32 bits of the key decorrelate frames/lights; the kernel
-        # further folds in (grid step, packet). Handles both typed and
-        # legacy uint32-array keys.
-        kd = key if jnp.issubdtype(key.dtype, jnp.integer) \
-            else jax.random.key_data(key)
-        seed = kd.ravel()[-1].astype(jnp.int32)
-        if fused_cone:
-            counts = trace_soft(origins, gbuf["valid"],
-                                jnp.asarray(light.direction, jnp.float32),
-                                jnp.cos(light.angular_radius), spp, seed)
-        else:
-            counts = trace_soft_point(
-                origins, gbuf["valid"],
-                jnp.asarray(light.position, jnp.float32),
-                jnp.asarray(light.radius, jnp.float32), spp, seed)
-        vis = 1.0 - counts.astype(jnp.float32) / spp
-        return jnp.where(gbuf["valid"], vis, 1.0)
-
-    # Soft path: lax.scan over samples — ONE traversal-kernel lowering
-    # regardless of spp (a Python unroll lowers spp copies of the Pallas
-    # call; with a large const accel that breaks the Mosaic compiler) and
-    # live memory stays one ray-grid (SURVEY.md §5 long-axis blocking).
-    def sample(acc, s):
+    def sample(carry, s):
+        acc, errors = carry
         u = jax.random.uniform(jax.random.fold_in(key, s), (h, w, 2))
         origins, dirs, t_max = shadow_ray_batch(gbuf, light, bias, u,
                                                 scene_bounds=scene_bounds)
-        occluded = trace_any(origins, dirs, t_max)
-        return acc + jnp.where(occluded, 0.0, 1.0), None
+        occluded, err = trace_any(origins, dirs, t_max)
+        return (acc + jnp.where(occluded, 0.0, 1.0), errors + err), None
 
-    acc, _ = jax.lax.scan(sample, jnp.zeros((h, w), jnp.float32),
-                          jnp.arange(spp))
-    return jnp.where(gbuf["valid"], acc / spp, 1.0)
+    # Carry inits derive from the G-buffer so they vary over shard_map
+    # axes exactly like the per-sample results do.
+    zero = jnp.where(gbuf["valid"], 0.0, 0.0)
+    (acc, errors), _ = jax.lax.scan(
+        sample, (zero, jnp.sum(zero).astype(jnp.int32)), jnp.arange(spp))
+    return jnp.where(gbuf["valid"], acc / spp, 1.0), errors

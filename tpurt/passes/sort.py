@@ -1,15 +1,14 @@
 """Ray sorting + stream compaction (BASELINE config 5).
 
 Incoherent shadow-ray batches (many lights, jittered area samples) scatter
-packet footprints across the BVH; sorting rays by (direction octant, Morton
-code of origin) re-clusters them so each 1024-ray packet traverses a compact
-node set. Invalid/sky rays sort to the end, so trailing packets are entirely
-inactive and the kernel's whole-packet early-exit skips them — stream
-compaction under XLA's static shapes (SURVEY.md §7 hard part 4: sort by
-predicate with padded capacity instead of dynamic shapes).
+neighbouring rays across the BVH; sorting rays by (direction octant, Morton
+code of origin) re-clusters them so neighbouring rays traverse a compact
+node set. Invalid/sky rays sort to the end, so trailing warps are entirely
+inactive and exit at once — stream compaction under XLA's static shapes
+(SURVEY.md §7 hard part 4: sort by predicate with padded capacity instead
+of dynamic shapes).
 
-The reference has no analogue (SIMT warps tolerate divergence); this is the
-TPU-native coherence mechanism, cf. "On Ray Reordering Techniques for Faster
+The reference has no analogue; cf. "On Ray Reordering Techniques for Faster
 GPU Ray Tracing" (PAPERS.md).
 """
 
@@ -76,14 +75,15 @@ def compaction_stats(t_max: jnp.ndarray, packet: int = 1024):
 
 
 def make_sorted_tracer(trace_any: Callable, scene_min, scene_max) -> Callable:
-    """Wrap an occlusion tracer with sort -> trace -> unsort."""
+    """Wrap an occlusion tracer ((o, d, t_max) -> (occluded, errors)) with
+    sort -> trace -> unsort."""
 
     def traced(origins, dirs, t_max):
         shape = t_max.shape
         o, d, tm, perm = sort_rays(origins, dirs,
                                    jnp.broadcast_to(t_max, shape),
                                    scene_min, scene_max)
-        occ = trace_any(o, d, tm)
-        return unsort(occ, perm, shape)
+        occ, errors = trace_any(o, d, tm)
+        return unsort(occ, perm, shape), errors
 
     return traced

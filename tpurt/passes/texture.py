@@ -6,12 +6,11 @@ path keeps per-triangle flat albedo (texture-free Sponza stand-in — no
 real assets are obtainable offline), and this pass adds real sampling for
 meshes that carry textures.
 
-TPU-first design: all textures live in ONE stacked square atlas
-f32[NT, R, R, 3] so a sample is a computed flat index into a single
-array — one gather per tap, identical cost for every texture, no ragged
-shapes. Sampling runs as a G-buffer post-pass on (tri_id, position), so
-every primary-visibility strategy (ray cast, shade-table ray cast, tile
-raster) gets textures through the same code path.
+Design: all textures live in ONE stacked square atlas f32[NT, R, R, 3]
+so a sample is a computed flat index into a single array — one gather per
+tap, identical cost for every texture, no ragged shapes. Sampling runs as
+a G-buffer post-pass on (tri_id, position), so every traversal route gets
+textures through the same code path.
 """
 
 from __future__ import annotations

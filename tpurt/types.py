@@ -1,6 +1,6 @@
 """Core data types for the tpurt renderer.
 
-These are the TPU-native equivalents of the reference app's resource structs:
+These are the equivalents of the reference app's resource structs:
 
 - ``Mesh``          <- vertex/index buffers built by ``loadModel()``
                        (reference: Source/RayTracedShadows.cpp, model-loading
@@ -54,8 +54,8 @@ class Mesh:
                also the fallback for untextured triangles)
     uv       : f32[V, 2] per-vertex texture coordinates, or None
     tex_atlas: f32[NT, R, R, 3] stacked square diffuse textures (one
-               fixed-resolution atlas array — TPU-friendly: every sample
-               is one computed-index gather, no per-texture shapes), or
+               fixed-resolution atlas array: every sample is one
+               computed-index gather, no per-texture shapes), or
                None. The reference samples a diffuse texture for albedo
                (Model.frag [RECALL]); here texturing is OPT-IN per mesh.
     tri_tex  : i32[T] per-triangle atlas layer (-1 = flat albedo), or None
@@ -198,8 +198,7 @@ class RenderConfig:
     """Static render configuration (hashable -> usable as a jit static arg).
 
     Mirrors the reference's AppConfig + command line, extended with the
-    BASELINE.json config axes (spp, packet size, sort/compact toggles,
-    build-vs-refit mode).
+    BASELINE.json config axes (spp, sort toggle, build-vs-refit mode).
     """
 
     width: int = 512
@@ -209,86 +208,33 @@ class RenderConfig:
     shadow_bias: float = 1e-3        # normal-offset bias, like the reference
     background: Tuple[float, float, float] = (0.18, 0.22, 0.30)
     leaf_size: int = 4               # triangles per BVH leaf
-    bvh_width: int = 8               # traversal arity: 2 (binary) or 8 (wide)
-    use_pallas: bool = True          # Pallas kernel vs pure-JAX traversal
-    packet_rows: int = 8             # ray-packet sublane dim (VPU = 8x128)
-    packet_cols: int = 128           # ray-packet lane dim
+    bvh_width: int = 8               # accel arity: 2 (binary) or 8 (wide)
+    # Who walks the 8-wide accel: the hand-written CUDA kernel
+    # (kernels/traverse.py) or the plain XLA walk (bvh/traverse.py). The
+    # kernel exists only on a CUDA GPU: runs elsewhere choose False.
+    use_kernel: bool = True
     sort_rays: bool = False          # ray sorting for coherence (config 5)
     accumulate: bool = False         # temporal accumulation (config 3)
     seed: int = 0
-    # Primary-visibility strategy: "raster" = tile rasterizer (the
-    # reference's own G-buffer strategy), "ray" = closest-hit ray cast,
-    # "auto" = pick by accel: ray on SAH trees (measured 2x faster than
-    # Morton closest-hit, beating the rasterizer), raster otherwise on
-    # compiled TPU backends (interpret-mode CPU runs keep the ray cast).
-    gbuffer: str = "auto"
-    raster_cap_pairs: int = 0        # 0 = auto from triangle count
-    # Deferred raster shading (v3): z-only half-width setup records in the
-    # kernel + one per-pixel shade-table gather afterwards, instead of the
-    # self-shading 32-float records evaluated wholly in the kernel.
-    raster_deferred: bool = False
-    # Two-pass seeded primary ray cast: a cheap first-hit pass supplies
-    # per-ray conservative t bounds that cap the main closest pass from
-    # iteration 0 (kernels/traverse.py trace_closest_pallas seeded=True).
-    # Exact (the bound only culls); flip per measurement.
-    seeded_gbuffer: bool = False
     # Static/refit scenes: build with the native host SAH builder when
-    # available (the reference's own startup strategy; measured +17%
-    # shadow and 2x closest-hit throughput vs the on-device Morton tree).
+    # available (the reference's own startup strategy).
     sah: bool = True
-    # Fused primary+shadow kernels: when the ray-cast G-buffer runs on
-    # the batched 8-wide Pallas path, trace the applicable lights'
-    # shadows inside the closest-hit kernel (phase 2) — no XLA raygen,
-    # no packet re-layout, one dispatch (kernels/traverse.py
-    # trace_closest_*_shadow_pallas). Default ON: with the attr-tracked
-    # phase 1 the fused frame measures equal-or-faster at every shape
-    # (1080p 41.5 vs 42.0 ms; 4K 2-light 151.7 vs 155.6) and the hard
-    # paths are bit-exact vs unfused. Light sets outside the fused
-    # matrix fall back per-light automatically.
-    fused_shadow: bool = True
-    # Attribute-tracked closest hit: the traversal kernel selects the
-    # winner's full shading attributes in registers, so the ray-cast
-    # G-buffer needs ZERO per-pixel gathers — measured 13.5 vs 27.0 ms
-    # at 1080p against the one-gather shade-table path (probe r3aa).
-    # Applies on the batched 8-wide Pallas path when the accel + attr
-    # rows fit the VMEM budget; other paths ignore it.
-    inkernel_attrs: bool = True
     # Near-first child ordering of the G-buffer accel w.r.t. the camera
-    # (bvh/wide.order_children_for_point). On fused frames the SAME
-    # ordered accel serves the shadow phase — a clear win on static SBVH
-    # frames, but on clustered rebuilt trees near-CAMERA-first is
-    # far-from-LIGHT-first and the any-hit phase loses more than the
-    # closest-hit phase gains (probe r5h, Sponza 1080p: gbuffer
-    # 44.25 -> 36.98 ms but shadow 12.05 -> 23.99) — Renderer flips
-    # this off for clustered rebuild mode.
+    # (bvh/wide.order_children_for_point). Renderer turns it off for
+    # clustered rebuild mode, whose per-frame accel is rebuilt anyway.
     order_children: bool = True
-    # Rebuild-mode tree quality: re-choose the top ~8 levels of the
-    # per-frame Morton topology by a sweep-SAH over 8-leaf block boxes
-    # (kernels/build.sweep_sah_priorities — the Cartesian-tree priorities
-    # steer the unchanged topology kernel). Config-2 quality lever; flip
-    # per measurement (probes/probe_r4b.py).
-    top_sah: bool = False
     # Rebuild-mode collapse frontier: "fixed" = depth-3 cut; "area" =
-    # SAH-greedy collapse via the scalar-core kernel
-    # (wide.widen_area_kernel). Default "area": it COMPOUNDS with the
-    # sub-leaf clustering below — probe r5e (Sponza 1080p, v5e) measured
-    # rebuilt-tree shadow 12.00 ms (clustered+area) vs 15.95
-    # (clustered+fixed) vs 20.22 (plain chop14), the same-tree
-    # rebuild+trace winning at 29.51 ms.
-    rebuild_collapse: str = "area"
-    # Rebuild-mode sub-leaf clustering (round 5): split the top-M
-    # triangle blocks at their largest internal Morton jump into two
-    # tight-boxed tree-leaves sharing the block's triangles
-    # (bvh/lbvh._subleaf_split — probe r5c: shadow pops/packet 11.1 ->
-    # 6.4 vs fixed chops). 0 = off, -1 = auto
-    # (lbvh.auto_split_blocks — the probe-r5e operating point), > 0 =
-    # exact M. Default auto: the r5e production winner.
+    # SAH-greedy collapse (bvh/wide.frontiers_area), which needs the
+    # rebuild to materialize every binary node's boxes and runs a 64-sweep
+    # reachability pass. "fixed" gave the faster config-2 frame on an H100
+    # (Sponza-class 1080p: 17-23 ms vs 35-39 ms per frame, 700 W card).
+    rebuild_collapse: str = "fixed"
+    # Rebuild-mode sub-leaf clustering: split the top-M triangle blocks at
+    # their largest internal Morton jump into two tight-boxed tree-leaves
+    # (bvh/lbvh._subleaf_split). 0 = off, -1 = auto
+    # (lbvh.auto_split_blocks), > 0 = exact M.
     rebuild_splits: int = -1
 
     @property
     def num_pixels(self) -> int:
         return self.width * self.height
-
-    @property
-    def packet_size(self) -> int:
-        return self.packet_rows * self.packet_cols

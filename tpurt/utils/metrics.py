@@ -2,7 +2,7 @@
 
 The reference brackets each pass with GPU timestamp queries and draws
 gbuffer/shadow/combine times on a HUD (Rush GfxContext timestamps [RECALL]).
-The TPU equivalent: wall-clock brackets around ``block_until_ready`` at pass
+Here: wall-clock brackets around ``block_until_ready`` at pass
 boundaries (only meaningful in profile mode — in fused mode XLA runs the
 whole frame as one program, which is the fast path), plus the BASELINE
 headline metric Mrays/s = shadow rays / shadow-pass seconds.
