@@ -64,7 +64,7 @@ def bench_headline(width: int, height: int, tris: int, leaf_size: int):
                            render_frame_fn)
     from tpurt.bvh.lbvh import auto_split_blocks, build_lbvh
     from tpurt.bvh.sah import build_sah_lbvh
-    from tpurt.bvh.wide import build_wide, count_wide, round_up_bucket
+    from tpurt.bvh.wide import build_wide
     from tpurt.kernels.traverse import build_library
     from tpurt.native import ensure_native
     from tpurt.passes.shading import make_shade_table
@@ -116,33 +116,27 @@ def bench_headline(width: int, height: int, tris: int, leaf_size: int):
         f"Mrays/s")
 
     # Config 2: the on-device LBVH, its fused per-frame rebuild (build +
-    # collapse + shading table, tpurt/app.py _rebuild_fused) and the
-    # rebuilt tree's own trace, for both collapse frontiers.
+    # fixed-cut collapse + shading table, tpurt/app.py _rebuild_fused) and
+    # the rebuilt tree's own trace.
     build = jax.jit(lambda v, i: build_lbvh(v, i, leaf_size=leaf_size))
     result["build_ms"] = timed(
         lambda: build(mesh.vertices, mesh.indices).nodes_box, 20) * 1e3
     msp = auto_split_blocks(mesh.num_triangles, leaf_size)
-    b0 = jax.jit(functools.partial(build_lbvh, leaf_size=leaf_size,
-                                   split_blocks=msp))(mesh.vertices,
-                                                      mesh.indices)
-    for collapse in ("fixed", "area"):
-        nw = round_up_bucket(max(count_wide(b0, mode=collapse), 1))
-        reb = jax.jit(functools.partial(
-            _rebuild_fused, leaf_size=leaf_size, nw_pad=nw,
-            collapse=collapse, split_blocks=msp))
-        rebuild_s = timed(lambda: reb(mesh.vertices, mesh.indices,
-                                      mesh)[1].nodes, 10)
-        acc = reb(mesh.vertices, mesh.indices, mesh)[1]
-        trace_s = timed(lambda: shade(acc, so, sd, stm), 20)
-        result[f"rebuild_{collapse}_ms"] = rebuild_s * 1e3
-        result[f"rebuilt_tree_shadow_{collapse}_ms"] = trace_s * 1e3
-        log(f"rebuild ({collapse} collapse, M={msp}): {rebuild_s * 1e3:.3f} "
-            f"ms + own-tree trace {trace_s * 1e3:.3f} ms")
-    best = min(("fixed", "area"), key=lambda c: result[f"rebuild_{c}_ms"]
-               + result[f"rebuilt_tree_shadow_{c}_ms"])
-    result["rebuild_ms"] = result[f"rebuild_{best}_ms"]
-    result["build_plus_trace_same_tree_ms"] = (
-        result[f"rebuild_{best}_ms"] + result[f"rebuilt_tree_shadow_{best}_ms"])
+    w0 = build_wide(jax.jit(functools.partial(
+        build_lbvh, leaf_size=leaf_size, split_blocks=msp))(
+            mesh.vertices, mesh.indices), mode="fixed")
+    reb = jax.jit(functools.partial(
+        _rebuild_fused, leaf_size=leaf_size, nw_pad=w0.num_wide,
+        stack_depth=w0.stack_depth, split_blocks=msp))
+    rebuild_s = timed(lambda: reb(mesh.vertices, mesh.indices,
+                                  mesh)[1].nodes, 10)
+    acc = reb(mesh.vertices, mesh.indices, mesh)[1]
+    trace_s = timed(lambda: shade(acc, so, sd, stm), 20)
+    result["rebuild_ms"] = rebuild_s * 1e3
+    result["rebuilt_tree_shadow_ms"] = trace_s * 1e3
+    result["build_plus_trace_same_tree_ms"] = (rebuild_s + trace_s) * 1e3
+    log(f"rebuild (M={msp}): {rebuild_s * 1e3:.3f} ms + own-tree trace "
+        f"{trace_s * 1e3:.3f} ms")
 
     frame = jax.jit(lambda a, m, c, lights, key, st: render_frame_fn(
         a, m, c, lights, key, cfg, shade_table=st)["image"])

@@ -100,10 +100,13 @@ def phase_build(rep: Report, mesh, wide, st, cam):
     from tpurt.camera import generate_rays
     from tpurt.cli import build_lights
     from tpurt.kernels.traverse import trace_any_cuda, trace_closest_cuda
+    from tpurt.bvh.wide import wide_levels_device
     from tpurt.types import RenderConfig
     rep.timing(f"accel: {mesh.num_triangles} tris, nodes {wide.nodes.shape}, "
                f"leaf rows {wide.tris.shape}, "
-               f"{(wide.nodes.size + wide.tris.size) * 4 / 1e6:.1f} MB")
+               f"{(wide.nodes.size + wide.tris.size) * 4 / 1e6:.1f} MB, "
+               f"{int(wide_levels_device(wide.nodes))} wide levels, "
+               f"{wide.stack_depth}-entry walk stack")
     o, d = generate_rays(cam, 1920, 1080)
     for name, fn, args in (
             ("closest", trace_closest_cuda, (wide, o, d)),
@@ -172,7 +175,7 @@ def phase_reference(rep: Report, wide, cam):
                              "stated tolerances")
 
 
-def _preset_renderer(preset: str, use_kernel: bool, **overrides):
+def _preset_renderer(preset: str, use_kernel: bool):
     """Renderer for a cli.PRESETS entry, built as tpurt.cli.main builds it
     (teapot for config1, Sponza-class for configs 2-5)."""
     from tpurt.app import Renderer
@@ -188,7 +191,7 @@ def _preset_renderer(preset: str, use_kernel: bool, **overrides):
     cfg = RenderConfig(width=opts["width"], height=opts["height"],
                        spp=opts["spp"], use_kernel=use_kernel,
                        accumulate=opts.get("accumulate", False),
-                       leaf_size=LEAF_SIZE, **overrides)
+                       leaf_size=LEAF_SIZE)
     r = Renderer(mesh, cam, lights, cfg, mode=opts["mode"])
     return r, mesh, opts
 
@@ -210,6 +213,14 @@ def _render_frames(r, mesh, opts, frames: int = 3):
     return img, times
 
 
+def _accel_line(r) -> str:
+    """Which accel a Renderer built, with its depth and walk stack."""
+    from tpurt.bvh.wide import wide_levels_device
+    levels = int(wide_levels_device(r.accel.nodes))
+    return (f"{r.accel_kind}; {levels} wide levels, "
+            f"{r.accel.stack_depth}-entry stack")
+
+
 def phase_presets(rep: Report):
     import gc
     import numpy as np
@@ -217,33 +228,28 @@ def phase_presets(rep: Report):
               "config3": "native host SBVH", "config4": "native host SBVH",
               "config5": "native host SBVH"}
     for preset in ("config1", "config2", "config3", "config4", "config5"):
-        variants = [{}]
-        if preset == "config2":
-            variants = [dict(rebuild_collapse="area"),
-                        dict(rebuild_collapse="fixed")]
-        for ov in variants:
-            r, mesh, opts = _preset_renderer(preset, True, **ov)
-            kind = r.accel_kind
-            if not kind.startswith(expect[preset]) or "CUDA" not in kind:
-                raise AssertionError(f"{preset} built {kind!r}")
-            img_k, times = _render_frames(r, mesh, opts)
-            del r
-            gc.collect()
-            rp, mesh, opts = _preset_renderer(preset, False, **ov)
-            img_x, _ = _render_frames(rp, mesh, opts)
-            del rp
-            gc.collect()
-            diff = np.abs(img_k - img_x)
-            tag = f"{preset}{'/' + ov['rebuild_collapse'] if ov else ''}"
-            rep.timing(
-                f"{tag} ({opts['width']}x{opts['height']} {opts['mode']} "
-                f"spp={opts['spp']} lights={opts['lights']}; {kind}): "
-                f"ms/frame first {times[0]:.2f} (compiles), then "
-                f"{times[1]:.3f} {times[2]:.3f}; vs plain route: max |d| "
-                f"{diff.max():.3g}, pixels off > 1e-3: "
-                f"{float((diff.max(axis=-1) > 1e-3).mean()):.3g}")
-            if not np.isfinite(img_k).all():
-                raise AssertionError(f"{tag}: non-finite pixels")
+        r, mesh, opts = _preset_renderer(preset, True)
+        kind = r.accel_kind
+        if not kind.startswith(expect[preset]) or "CUDA" not in kind:
+            raise AssertionError(f"{preset} built {kind!r}")
+        accel = _accel_line(r)
+        img_k, times = _render_frames(r, mesh, opts)
+        del r
+        gc.collect()
+        rp, mesh, opts = _preset_renderer(preset, False)
+        img_x, _ = _render_frames(rp, mesh, opts)
+        del rp
+        gc.collect()
+        diff = np.abs(img_k - img_x)
+        rep.timing(
+            f"{preset} ({opts['width']}x{opts['height']} {opts['mode']} "
+            f"spp={opts['spp']} lights={opts['lights']}; {accel}): "
+            f"ms/frame first {times[0]:.2f} (compiles), then "
+            f"{times[1]:.3f} {times[2]:.3f}; vs plain route: max |d| "
+            f"{diff.max():.3g}, pixels off > 1e-3: "
+            f"{float((diff.max(axis=-1) > 1e-3).mean()):.3g}")
+        if not np.isfinite(img_k).all():
+            raise AssertionError(f"{preset}: non-finite pixels")
 
 
 def phase_decide(rep: Report, mesh, bvh_sah, wide, st, cam):
@@ -315,59 +321,50 @@ def phase_tests():
 
 
 def run_four(rep: Report):
-    """Row-sharded static Sponza 4K two-light frame over 4 cards vs the
-    same frame on one card."""
+    """Row-sharded static Sponza 4K two-light frame over 4 cards, on the
+    CLI's --shard path (parallel/tiling.sharded_frames), vs the same
+    Renderer's frame on one card."""
     import jax
     import numpy as np
-    from tpurt.app import render_frame_fn
-    from tpurt.camera import generate_rays
-    from tpurt.cli import build_lights
-    from tpurt.parallel.tiling import (device_put_replicated, make_tile_mesh,
-                                       render_frame_sharded)
+    from tpurt.app import Renderer, check_trace_errors
+    from tpurt.cli import build_lights, build_scene
+    from tpurt.parallel.tiling import sharded_frames
     from tpurt.scenes import sponza_interior_camera
     from tpurt.types import RenderConfig
     devs = jax.devices()
     if len(devs) < 4:
         raise SystemExit(f"--four needs 4 GPUs, JAX sees {len(devs)}")
-    mesh, _, wide, st = sponza_accel()
-    cam = sponza_interior_camera()
-    lights = tuple(build_lights("multi", (0.45, 0.8, 0.3))[:2])
-    cfg = RenderConfig(width=3840, height=2160, leaf_size=LEAF_SIZE)
-    key = jax.random.PRNGKey(0)
-    # Both frames trace the same rays: ray generation compiled into two
-    # different programs may round differently and flip edge pixels.
-    rays = jax.jit(generate_rays, static_argnums=(1, 2))(cam, 3840, 2160)
+    lights = build_lights("multi", (0.45, 0.8, 0.3))[:2]
+    r = Renderer(build_scene("sponza"), sponza_interior_camera(), lights,
+                 RenderConfig(width=3840, height=2160, leaf_size=LEAF_SIZE))
+    print(f"accel: {_accel_line(r)}")
+    shard_frame = sharded_frames(r, devs[:4])
+    key = jax.random.PRNGKey(r.config.seed)
 
     def one():
-        out = render_frame_fn(wide, mesh, cam, lights, key, cfg,
-                              shade_table=st, rays=rays)
-        return jax.block_until_ready(out["image"]), out["trace_errors"]
-
-    dev_mesh = make_tile_mesh(devs[:4])
-    acc_r, mesh_r, st_r = (device_put_replicated(x, dev_mesh)
-                           for x in (wide, mesh, st))
-    sharded = jax.jit(lambda a, m, c, l, k, t, r: render_frame_sharded(
-        a, m, c, l, k, cfg, mesh=dev_mesh, shade_table=t, rays=r))
+        return r.render_frame()["image"]
 
     def four():
-        img, errors = sharded(acc_r, mesh_r, cam, lights, key, st_r, rays)
-        return jax.block_until_ready(img), errors
+        img, errors = shard_frame(key)
+        check_trace_errors(errors, "sharded frame")
+        return jax.block_until_ready(img)
 
-    img1, e1 = one()
-    img4, e4 = four()
-    # In turns: one card, four, four, one.
+    img1, img4 = np.asarray(one()), np.asarray(four())
+    # In turns: one card, four, four, one; each as its user path runs it
+    # (Renderer.render_frame; the CLI's --shard frame and error check).
     t1, t4 = [_median_ms(one, 5)], []
     t4 += [_median_ms(four, 5), _median_ms(four, 5)]
     t1.append(_median_ms(one, 5))
-    rep.timing(f"static Sponza 4K, 2 suns, one card: frame ms {t1}")
-    rep.timing(f"static Sponza 4K, 2 suns, rows sharded over 4 cards: "
-               f"frame ms {t4}")
-    d = np.abs(np.asarray(img1) - np.asarray(img4)).max(axis=-1)
+    rep.timing(f"static Sponza 4K, 2 suns, one card (Renderer): frame ms "
+               f"{t1}")
+    rep.timing(f"static Sponza 4K, 2 suns, rows sharded over 4 cards "
+               f"(--shard path): frame ms {t4}")
+    d = np.abs(img1 - img4).max(axis=-1)
     diff = float(d.max())
     print(f"sharded vs one-card image: max |d| {diff:.3g} (need <= "
           f"{SHARD_IMAGE_TOL}), {int((d > SHARD_IMAGE_TOL).sum())} pixels "
-          f"over; walk errors {int(e1)} / {int(e4)}")
-    if diff > SHARD_IMAGE_TOL or int(e1) or int(e4):
+          f"over")
+    if diff > SHARD_IMAGE_TOL:
         raise AssertionError("sharded frame disagrees with one card")
 
 

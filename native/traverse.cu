@@ -20,6 +20,10 @@
 // when t_min < t < best_t. Closest hit returns (t, sorted triangle index);
 // any hit returns an occlusion flag. A walk that would overflow the stack
 // or passes the iteration cap is counted in the error output.
+//
+// The per-thread stack has one of three sizes (64, 128 or 256 entries, one
+// kernel instantiation each), chosen by the caller from the tree's depth
+// (tpurt/bvh/wide.py size_stack: 7 * levels + 1 entries always suffice).
 
 #include <cuda_runtime.h>
 
@@ -31,7 +35,6 @@ namespace ffi = xla::ffi;
 
 namespace {
 
-constexpr int kStackDepth = 64;
 constexpr int kRowFloats = 128;
 constexpr int kMaxLeafSize = 14;  // 14 * 9 floats fill one 128-float row
 constexpr float kBig = 3.4e38f;
@@ -122,7 +125,7 @@ __device__ __forceinline__ bool test_leaf(const float* __restrict__ tris,
   return false;
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, int kStackDepth>
 __global__ void __launch_bounds__(kBlockThreads)
     walk_kernel(const float4* __restrict__ nodes,
                 const float* __restrict__ tris,
@@ -225,7 +228,7 @@ __global__ void __launch_bounds__(kBlockThreads)
 }
 
 struct Launch {
-  int width, height, tile_w, k, max_iters;
+  int width, height, tile_w, k, max_iters, stack_depth;
 };
 
 ffi::Error check(const ffi::Buffer<ffi::F32>& nodes,
@@ -237,6 +240,9 @@ ffi::Error check(const ffi::Buffer<ffi::F32>& nodes,
   }
   if (l.k < 1 || l.k > kMaxLeafSize) {
     return ffi::Error::InvalidArgument("leaf_size must be in 1..14");
+  }
+  if (l.stack_depth != 64 && l.stack_depth != 128 && l.stack_depth != 256) {
+    return ffi::Error::InvalidArgument("stack_depth must be 64, 128 or 256");
   }
   if (l.tile_w < 1 || l.tile_w > 32 || 32 % l.tile_w) {
     return ffi::Error::InvalidArgument("tile_w must divide 32");
@@ -262,8 +268,10 @@ ffi::Error enqueue(cudaStream_t stream, const ffi::Buffer<ffi::F32>& nodes,
       static_cast<long long>((l.width + l.tile_w - 1) / l.tile_w) *
       ((l.height + tile_h - 1) / tile_h);
   const long long blocks = (warps * 32 + kBlockThreads - 1) / kBlockThreads;
-  walk_kernel<kAnyHit><<<static_cast<unsigned>(blocks), kBlockThreads, 0,
-                         stream>>>(
+  auto kernel = l.stack_depth == 64    ? walk_kernel<kAnyHit, 64>
+                : l.stack_depth == 128 ? walk_kernel<kAnyHit, 128>
+                                       : walk_kernel<kAnyHit, 256>;
+  kernel<<<static_cast<unsigned>(blocks), kBlockThreads, 0, stream>>>(
       reinterpret_cast<const float4*>(nodes.typed_data()), tris.typed_data(),
       reinterpret_cast<const float4*>(rays.typed_data()), l.width, l.height,
       l.tile_w, l.k, l.max_iters, t_min, t_out, idx_out, errors);
@@ -280,9 +288,12 @@ ffi::Error closest_hit(cudaStream_t stream, ffi::Buffer<ffi::F32> nodes,
                        ffi::ResultBuffer<ffi::S32> idx_out,
                        ffi::ResultBuffer<ffi::S32> errors, float t_min,
                        int32_t width, int32_t height, int32_t tile_w,
-                       int32_t leaf_size, int32_t max_iters) {
+                       int32_t leaf_size, int32_t max_iters,
+                       int32_t stack_depth) {
   return enqueue<false>(stream, nodes, tris, rays,
-                        {width, height, tile_w, leaf_size, max_iters}, t_min,
+                        {width, height, tile_w, leaf_size, max_iters,
+                         stack_depth},
+                        t_min,
                         t_out->typed_data(), idx_out->typed_data(),
                         errors->typed_data());
 }
@@ -292,9 +303,12 @@ ffi::Error any_hit(cudaStream_t stream, ffi::Buffer<ffi::F32> nodes,
                    ffi::ResultBuffer<ffi::S32> occluded,
                    ffi::ResultBuffer<ffi::S32> errors, float t_min,
                    int32_t width, int32_t height, int32_t tile_w,
-                   int32_t leaf_size, int32_t max_iters) {
+                   int32_t leaf_size, int32_t max_iters,
+                   int32_t stack_depth) {
   return enqueue<true>(stream, nodes, tris, rays,
-                       {width, height, tile_w, leaf_size, max_iters}, t_min,
+                       {width, height, tile_w, leaf_size, max_iters,
+                        stack_depth},
+                       t_min,
                        nullptr, occluded->typed_data(), errors->typed_data());
 }
 
@@ -314,7 +328,8 @@ XLA_FFI_DEFINE_HANDLER_SYMBOL(RtClosestHit, closest_hit,
                                   .Attr<int32_t>("height")
                                   .Attr<int32_t>("tile_w")
                                   .Attr<int32_t>("leaf_size")
-                                  .Attr<int32_t>("max_iters"));
+                                  .Attr<int32_t>("max_iters")
+                                  .Attr<int32_t>("stack_depth"));
 
 XLA_FFI_DEFINE_HANDLER_SYMBOL(RtAnyHit, any_hit,
                               ffi::Ffi::Bind()
@@ -329,4 +344,5 @@ XLA_FFI_DEFINE_HANDLER_SYMBOL(RtAnyHit, any_hit,
                                   .Attr<int32_t>("height")
                                   .Attr<int32_t>("tile_w")
                                   .Attr<int32_t>("leaf_size")
-                                  .Attr<int32_t>("max_iters"));
+                                  .Attr<int32_t>("max_iters")
+                                  .Attr<int32_t>("stack_depth"));

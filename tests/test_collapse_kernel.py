@@ -1,7 +1,7 @@
-"""Area-greedy 8-wide collapse (wide.frontiers_area + reachability), the
-frontier rebuild mode can take every frame (RenderConfig.rebuild_collapse):
-traces through it must match the binary walk and brute force, and its rows
-must form a valid tree."""
+"""8-wide collapses: the area-greedy frontier (wide.frontiers_area +
+reachability) static and refit scenes take, and the fixed cut of the fused
+per-frame rebuild (app._rebuild_fused). Traces through them must match the
+binary walk and brute force, and their rows must form a valid tree."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,22 +46,27 @@ def test_kernel_collapse_matches_xla_area_widen(nt, leaf, seed):
     np.testing.assert_array_equal(np.asarray(h0) >= 0, np.asarray(h1) >= 0)
 
 
-def test_rebuild_fused_area_collapse_traces_correctly():
-    """Config-2 plumbing: _rebuild_fused(collapse='area') — the full
-    per-frame program (clustered build + area collapse + shade table) —
-    yields an accel whose closest hits agree with brute force."""
+def test_rebuild_fused_traces_correctly():
+    """Config-2 plumbing: _rebuild_fused — the full per-frame program
+    (clustered build + fixed-cut collapse + shade table) — yields an accel
+    whose closest hits agree with brute force, carrying the stack size it
+    is given and reporting its own count and depth."""
     from tpurt.app import _rebuild_fused
     from tpurt.bvh.reference import brute_force_closest
+    from tpurt.bvh.wide import wide_levels_device
 
     mesh = random_soup(250, seed=13)
     v = jnp.asarray(mesh.vertices)
     i = jnp.asarray(mesh.indices)
     msp = 8
     b0 = build_lbvh(v, i, leaf_size=4, split_blocks=msp)
-    nw = round_up_bucket(max(count_wide(b0, mode="area"), 1), 64)
-    _, wide, st, cnt = _rebuild_fused(v, i, mesh, 4, nw, collapse="area",
-                                      split_blocks=msp)
+    nw = round_up_bucket(max(count_wide(b0, mode="fixed"), 1), 64)
+    _, wide, st, cnt, levels = _rebuild_fused(v, i, mesh, 4, nw,
+                                              stack_depth=128,
+                                              split_blocks=msp)
     assert int(cnt) <= nw
+    assert wide.stack_depth == 128
+    assert int(levels) == int(wide_levels_device(wide.nodes)) >= 2
     assert st.shape[0] == wide.tri_id.shape[0]
     rng = np.random.default_rng(2)
     o = rng.uniform(-9, 9, (64, 3)).astype(np.float32)

@@ -54,6 +54,8 @@ def test_accel_checks():
     import dataclasses
     with pytest.raises(ValueError, match="leaf_size"):
         kt._check_accel(dataclasses.replace(wide, leaf_size=15))
+    with pytest.raises(ValueError, match="stack_depth"):
+        kt._check_accel(dataclasses.replace(wide, stack_depth=100))
 
 
 def test_kernel_route_refuses_cpu():

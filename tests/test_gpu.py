@@ -128,3 +128,22 @@ def test_kernel_frame_matches_plain_route(gpu):
         imgs.append(np.asarray(r.render_frame()["image"]))
     diff = np.abs(imgs[0] - imgs[1]).max(axis=-1)
     assert (diff > 1e-3).mean() <= 1e-3
+
+
+def test_kernel_stack_sized_from_tree(gpu):
+    """A hand-made chain tree deeper than the 64-entry stack holds: the
+    kernel instantiation size_stack picks walks it without errors and
+    agrees with the XLA walk (tests/test_wide_walk.py builds the tree)."""
+    from test_wide_walk import _chain_tree
+    from tpurt.bvh.wide import size_stack
+    from tpurt.kernels.traverse import trace_any_cuda, trace_closest_cuda
+    wide = size_stack(_chain_tree(12))
+    assert wide.stack_depth == 128
+    o = jnp.zeros((4, 32, 3))
+    d = jnp.broadcast_to(jnp.asarray([0.3, 0.5, 0.81]), (4, 32, 3))
+    _, sk, ek = trace_closest_cuda(wide, o, d)
+    occ, eak = trace_any_cuda(wide, o, d, 3.4e38)
+    _, sx, ex = traverse_wide(wide, o, d)
+    assert int(ek) == int(eak) == int(ex) == 0
+    assert (np.asarray(sk) == -1).all() and (np.asarray(sx) == -1).all()
+    assert not np.asarray(occ).any()

@@ -240,8 +240,8 @@ def test_renderer_rebuild_overflow_recovery(scene):
     r = Renderer(mesh, cam, light, cfg, mode="rebuild")
     assert r._nw_pad is not None
     from tpurt.bvh.wide import count_wide
-    # The rebuild-path frontier mode (RenderConfig.rebuild_collapse).
-    true_count = count_wide(r.bvh, mode=r.config.rebuild_collapse)
+    # The rebuild path's frontier: the fixed depth-3 cut.
+    true_count = count_wide(r.bvh, mode="fixed")
     # Force an undersized pad (as if geometry grew), then animate: the
     # rebuild must notice count > pad and recover via a full re-plan.
     r._nw_pad = max(1, true_count - 1)

@@ -1,6 +1,6 @@
 """One small frame through each Renderer mode on the plain XLA route (the
-route CPU runs take): static, rebuild with each collapse frontier, refit,
-the binary accel, soft shadows, ray sorting. Each frame must be finite,
+route CPU runs take): static, rebuild (clustered or not), refit, the
+binary accel, soft shadows, ray sorting. Each frame must be finite,
 count no walk errors, and agree with the static 8-wide render of the same
 geometry where the mode does not change the picture."""
 
@@ -33,8 +33,8 @@ def static_image(scene):
 
 
 MODES = {
-    "rebuild_area": ("rebuild", dict(rebuild_collapse="area")),
-    "rebuild_fixed": ("rebuild", dict(rebuild_collapse="fixed")),
+    "rebuild": ("rebuild", dict()),
+    "refit_first_frame": ("refit", dict()),
     "rebuild_unclustered": ("rebuild", dict(rebuild_splits=0)),
     "binary": ("static", dict(bvh_width=2)),
     "sorted_rays": ("static", dict(sort_rays=True)),

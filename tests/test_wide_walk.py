@@ -15,8 +15,8 @@ import pytest
 from tpurt.bvh import traverse as walk
 from tpurt.bvh.lbvh import build_lbvh
 from tpurt.bvh.reference import brute_force_closest
-from tpurt.bvh.wide import build_wide, count_wide, round_up_bucket, \
-    widen_lbvh
+from tpurt.bvh.wide import STACK_SIZES, build_wide, count_wide, \
+    round_up_bucket, stack_size_for, wide_levels_device, widen_lbvh
 from tpurt.scenes import deform, random_soup
 
 
@@ -159,15 +159,91 @@ def test_wide_walk_matches_oracle(case):
 def test_walk_errors_are_counted(limit, monkeypatch):
     """A walk that overflows its stack or passes its iteration cap is
     counted, not returned as a silent miss."""
-    if limit == "stack":
-        monkeypatch.setattr(walk, "WIDE_STACK_DEPTH", 2)
-    else:
+    if limit == "iterations":
         monkeypatch.setattr(walk, "wide_iteration_cap", lambda nw: 2)
     mesh = random_soup(300, seed=10)
     wide = build_wide(_morton(mesh, leaf=1))
+    if limit == "stack":
+        wide = dataclasses.replace(wide, stack_depth=2)
     o, d = _rays(10, n=128)
     one = jax.vmap(lambda o, d, tm: walk._wide_walk_one(wide, False, 0.0,
                                                         o, d, tm))
     _, _, err = one(jnp.asarray(o), jnp.asarray(d),
                     jnp.full((128,), jnp.inf, jnp.float32))
     assert np.asarray(err).sum() > 0
+
+
+def _levels_bfs(wide) -> int:
+    """Wide levels by a plain breadth-first walk from the root row (a child
+    ref > 0 is a node row; leaves and empty slots are negative)."""
+    rows = np.asarray(wide.nodes).reshape(-1, 8, 16)
+    level, frontier = 0, [0]
+    while frontier:
+        level += 1
+        frontier = [int(r) for n in frontier for r in rows[n, :, 6] if r > 0]
+    return level
+
+
+LEVEL_TREES = {
+    "morton_leaf1": lambda m: build_wide(_morton(m, leaf=1)),
+    "morton_fixed": lambda m: build_wide(_morton(m, leaf=2), mode="fixed"),
+    "clustered": lambda m: build_wide(_morton(m, leaf=4, split_blocks=12)),
+    "one_row": lambda m: build_wide(_morton(m, leaf=8)),
+}
+
+
+@pytest.mark.parametrize("tree", sorted(LEVEL_TREES))
+def test_wide_levels_match_bfs(tree):
+    """The device depth count (pointer doubling) agrees with a BFS, and the
+    stack the build chose holds 7 * levels + 1 entries."""
+    mesh = random_soup(300 if tree != "one_row" else 40, seed=11)
+    wide = LEVEL_TREES[tree](mesh)
+    levels = int(wide_levels_device(wide.nodes))
+    assert levels == _levels_bfs(wide)
+    assert wide.stack_depth == stack_size_for(levels)
+    assert 7 * levels + 1 <= wide.stack_depth
+
+
+def test_stack_size_choice_and_refusal():
+    assert [stack_size_for(n) for n in (1, 9, 10, 18, 19, 36)] == [
+        64, 64, 128, 128, 256, 256]
+    assert STACK_SIZES[-1] == 256
+    with pytest.raises(ValueError, match="levels"):
+        stack_size_for(37)
+
+
+def _chain_tree(levels: int):
+    """A hand-made WideBVH: a chain of ``levels`` rows whose slot 7 is the
+    next row and slots 0-6 are (empty-triangle) leaves, every box the same.
+    The walk pops slot 7 first, so 7 leaves wait per level: the stack peaks
+    at 7 * (levels - 1) + 8 entries."""
+    from tpurt.bvh.wide import WideBVH
+    rows = np.zeros((levels, 8, 16), np.float32)
+    rows[:, :, 0:3] = -1.0
+    rows[:, :, 3:6] = 1.0
+    leaf = np.arange(levels * 8, dtype=np.float32).reshape(levels, 8)
+    rows[:, :, 6] = -(leaf + 1.0)
+    rows[:-1, 7, 6] = np.arange(1, levels, dtype=np.float32)
+    n_leaves = levels * 8
+    return WideBVH(nodes=jnp.asarray(rows.reshape(levels, 128)),
+                   tris=jnp.zeros((n_leaves, 128), jnp.float32),
+                   tri_id=jnp.arange(n_leaves, dtype=jnp.int32),
+                   root_min=jnp.full((3,), -1.0), root_max=jnp.ones((3,)),
+                   num_wide=levels, leaf_size=1)
+
+
+def test_deep_tree_walks_without_overflow():
+    """A tree too deep for the smallest stack: size_stack picks a larger
+    one and the walk counts no error, where the smallest overflows."""
+    from tpurt.bvh.wide import size_stack
+    chain = _chain_tree(12)
+    assert int(wide_levels_device(chain.nodes)) == 12
+    sized = size_stack(chain)
+    assert sized.stack_depth == 128
+    o = jnp.zeros((32, 3))
+    d = jnp.tile(jnp.asarray([[0.3, 0.5, 0.81]]), (32, 1))
+    for wide, want_err in ((sized, 0), (chain, 32)):
+        for any_hit in (False, True):
+            _, sidx, err = walk.traverse_wide(wide, o, d, any_hit=any_hit)
+            assert int(err) == want_err
+            assert (np.asarray(sidx) == -1).all()

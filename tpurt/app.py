@@ -30,9 +30,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from .bvh.lbvh import LBVH, build_lbvh, refit_lbvh, sah_cost
-from .bvh.wide import WideBVH, order_children_for_point, widen_lbvh, \
-    wide_count_device
+from .bvh.wide import WideBVH, order_children_for_point, size_stack, \
+    stack_size_for, wide_count_device, wide_levels_device, widen_lbvh
 from .bvh import traverse as jax_traverse
+from .camera import camera_rays
 from .passes.shading import make_shade_table
 from .passes.composite import accumulate, composite_pass
 from .passes.gbuffer import gbuffer_pass
@@ -97,24 +98,24 @@ def make_tracers(cfg: RenderConfig):
     return closest, any_
 
 
-@partial(jax.jit, static_argnames=("leaf_size", "nw_pad", "collapse",
+@partial(jax.jit, static_argnames=("leaf_size", "nw_pad", "stack_depth",
                                    "split_blocks"))
 def _rebuild_fused(vertices, indices, mesh, leaf_size: int, nw_pad: int,
-                   collapse: str = "fixed", split_blocks: int = 0):
-    """Config-2 hot path: LBVH build + 8-wide collapse + shading table as
-    ONE device program — no host syncs. The wide-node count rides along as
-    a device scalar so callers can check pad overflow opportunistically
-    (XLA CSE merges it with the identical mask inside widen_lbvh).
+                   stack_depth: int = 64, split_blocks: int = 0):
+    """Config-2 hot path: LBVH build + 8-wide collapse (the fixed depth-3
+    cut: only the wide nodes' boxes are ever needed, so the build defers
+    node boxes) + shading table as ONE device program — no host syncs.
 
-    collapse: "fixed" = depth-3 cut (only the wide nodes' boxes are ever
-    needed, so the build defers node boxes); "area" = SAH-greedy frontier
-    (ranks every binary node by area, so the build materializes them)."""
-    bvh = build_lbvh(vertices, indices, leaf_size=leaf_size,
-                     boxes="full" if collapse == "area" else "defer",
+    The wide-node count and the tree's wide levels ride along as device
+    scalars, so callers can check the pad and the walks' stack
+    (``stack_depth``, sized for an earlier tree) opportunistically."""
+    bvh = build_lbvh(vertices, indices, leaf_size=leaf_size, boxes="defer",
                      split_blocks=split_blocks)
-    wide = widen_lbvh(bvh, nw_pad=nw_pad, mode=collapse)
-    cnt = wide_count_device(bvh, mode=collapse)
-    return bvh, wide, make_shade_table(bvh, mesh), cnt
+    wide = widen_lbvh(bvh, nw_pad=nw_pad, mode="fixed")
+    wide = dataclasses.replace(wide, stack_depth=stack_depth)
+    cnt = wide_count_device(bvh, mode="fixed")
+    return (bvh, wide, make_shade_table(bvh, mesh), cnt,
+            wide_levels_device(wide.nodes))
 
 
 @jax.jit
@@ -175,8 +176,9 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera, lights: Sequence[Light],
 
     ``shade_table`` (passes/shading.make_shade_table of the accel's LBVH)
     is required on the 8-wide accel, whose walks return sorted indices.
-    ``rays``: optional precomputed (origins, dirs) band — the sharded frame
-    (parallel/tiling.py) renders its shard through here.
+    ``rays``: optional precomputed (origins, dirs) — the Renderer's
+    camera rays (camera.camera_rays), or a shard's band of them in the
+    sharded frame (parallel/tiling.py); generated here when absent.
     ``out["trace_errors"]`` sums every pass's walk errors."""
     gbuf = gbuffer_production(bvh, mesh, cam, cfg, shade_table, rays=rays)
     errors = gbuf.pop("trace_errors")
@@ -249,7 +251,7 @@ class Renderer:
         self.config = config
         self.mode = mode
         self.rebuild_threshold = rebuild_threshold
-        self.camera = camera
+        self.set_camera(camera)
         self.lights = list(lights)
         self.mesh = jax.device_put(mesh)
         self._build_jit = jax.jit(partial(
@@ -270,7 +272,9 @@ class Renderer:
             self._clip_plan = self._make_clip_plan()
         self.stats.build_ms = timer.ms["build"]
         self._base_cost = float(sah_cost(self.bvh))
-        print(f"tpurt: accel = {self.accel_kind}", file=sys.stderr)
+        stack = (f"; {self.accel.stack_depth}-entry walk stack"
+                 if isinstance(self.accel, WideBVH) else "")
+        print(f"tpurt: accel = {self.accel_kind}{stack}", file=sys.stderr)
 
     @property
     def accel_kind(self) -> str:
@@ -324,11 +328,10 @@ class Renderer:
         if self.config.bvh_width != 8:
             return self.bvh
         from .bvh.wide import count_wide, make_wide_plan, round_up_bucket
-        # The rebuild hot path collapses with config.rebuild_collapse every
-        # frame, so its pad must be counted the same way; static/refit
-        # scenes take the default (area) frontier.
-        collapse_mode = (self.config.rebuild_collapse
-                         if self.mode == "rebuild" else None)
+        # The rebuild hot path collapses with the fixed cut every frame, so
+        # its pad must be counted the same way; static/refit scenes take
+        # the default (area) frontier.
+        collapse_mode = "fixed" if self.mode == "rebuild" else None
         nw_pad = round_up_bucket(
             max(count_wide(self.bvh, mode=collapse_mode), 1))
         self._nw_pad = nw_pad
@@ -338,8 +341,8 @@ class Renderer:
             # accel directly.
             from .bvh.wide import _widen_jit
             self._wide_plan = None
-            return jax.block_until_ready(_widen_jit(
-                self.bvh, nw_pad=nw_pad, mode=collapse_mode))
+            return size_stack(_widen_jit(self.bvh, nw_pad=nw_pad,
+                                         mode=collapse_mode))
         self._wide_plan = jax.jit(
             make_wide_plan, static_argnames=("nw_pad", "mode"))(
                 self.bvh, nw_pad=nw_pad, mode=collapse_mode)
@@ -352,9 +355,8 @@ class Renderer:
         leaf_boxes = None
         if self.bvh.nodes_box is not None:
             leaf_boxes = jax.jit(leaf_boxes_from_nodes)(self.bvh)
-        return jax.block_until_ready(
-            jax.jit(widen_from_plan)(self._wide_plan, self.bvh,
-                                     leaf_boxes=leaf_boxes))
+        return size_stack(jax.jit(widen_from_plan)(
+            self._wide_plan, self.bvh, leaf_boxes=leaf_boxes))
 
     def _make_clip_plan(self):
         """Refit-mode precompute: barycentric clip polygons per leaf slot
@@ -371,19 +373,27 @@ class Renderer:
         return ClipRefitPlan(bary=bary, plan=self._wide_plan, slack=slack)
 
     def _refit_accel(self):
-        """Refit fast path: topology (and therefore the wide plan) is
-        frozen, so only boxes are re-gathered — no count host-sync. The
-        shading table holds geometry (v0/e1/e2, normals) and must follow."""
+        """Refit fast path: topology (and therefore the wide plan and the
+        walks' stack size) is frozen, so only boxes are re-gathered — no
+        count host-sync. The shading table holds geometry (v0/e1/e2,
+        normals) and must follow."""
         self.shade_table = jax.jit(make_shade_table)(self.bvh, self.mesh)
         if self._nw_pad is not None:
             from .bvh.wide import widen_from_plan
-            return jax.jit(widen_from_plan)(self._wide_plan, self.bvh)
+            return dataclasses.replace(
+                jax.jit(widen_from_plan)(self._wide_plan, self.bvh),
+                stack_depth=self.accel.stack_depth)
         return self.bvh
 
     # -- scene updates ------------------------------------------------------
 
     def set_camera(self, camera: Camera) -> None:
+        """New camera; its primary rays are generated once, here, by the
+        same compiled program the sharded frame takes them from
+        (parallel/tiling.sharded_frames), so both trace identical rays."""
         self.camera = camera
+        self.rays = camera_rays(camera, self.config.width,
+                                self.config.height)
 
     def set_lights(self, lights: Union[Light, Sequence[Light]]) -> None:
         if isinstance(lights, Light):
@@ -411,22 +421,26 @@ class Renderer:
                 if self._nw_pad is not None:
                     # Fused build+collapse+shading-table: one device program,
                     # no per-frame host sync for the wide-node count.
-                    bvh, accel, st, cnt = _rebuild_fused(
+                    depth = self.accel.stack_depth
+                    bvh, accel, st, cnt, levels = _rebuild_fused(
                         self.mesh.vertices, self.mesh.indices, self.mesh,
                         self.config.leaf_size, self._nw_pad,
-                        collapse=self.config.rebuild_collapse,
+                        stack_depth=depth,
                         split_blocks=self._rebuild_splits)
                     overflow = False
                     if self._geom_dirty:
-                        # Geometry changed since the pad was chosen: check
-                        # the on-device count once (the program has already
-                        # run; this is a scalar fetch, not extra compute).
-                        overflow = int(np.asarray(cnt)) > self._nw_pad
+                        # Geometry changed since the pad and the stack were
+                        # sized: check the on-device count and depth once
+                        # (the program has already run; these are scalar
+                        # fetches, not extra compute).
+                        cnt, levels = jax.device_get((cnt, levels))
+                        overflow = (int(cnt) > self._nw_pad
+                                    or stack_size_for(int(levels)) > depth)
                         self._geom_dirty = False
                     if overflow:
-                        # Pad overflow: recount + re-plan (host sync) — the
-                        # recovery path; rendering never sees the truncated
-                        # collapse.
+                        # Pad or stack overflow: recount + re-plan (host
+                        # sync) — the recovery path; rendering never sees
+                        # the truncated collapse or a short stack.
                         self.bvh = jax.block_until_ready(
                             self._build_jit(self.mesh.vertices,
                                             self.mesh.indices))
@@ -446,10 +460,12 @@ class Renderer:
                 if self._clip_plan is not None:
                     # Clip-geometry refit (bvh/clip_refit.py): one fused
                     # program, preserves the static SBVH's spatial-split
-                    # quality.
-                    self.bvh, self.accel, self.shade_table = \
+                    # quality. The frozen topology keeps its stack size.
+                    self.bvh, accel, self.shade_table = \
                         _clip_refit_fused(self._clip_plan, self.bvh,
                                           self.mesh.vertices, self.mesh)
+                    self.accel = dataclasses.replace(
+                        accel, stack_depth=self.accel.stack_depth)
                     jax.block_until_ready(self.accel.nodes)
                 else:
                     self.bvh = jax.block_until_ready(
@@ -496,7 +512,8 @@ class Renderer:
         with timer.section("frame", None):
             out = render_frame_fn(self.accel, self.mesh, self.camera,
                                   tuple(self.lights), key, cfg,
-                                  shade_table=self.shade_table)
+                                  shade_table=self.shade_table,
+                                  rays=self.rays)
             jax.block_until_ready(out["image"])
         self.stats.frame_ms = timer.ms["frame"]
         valid, errors = jax.device_get((jnp.sum(out["valid"]),
@@ -549,7 +566,7 @@ class Renderer:
         gb = jax.jit(partial(gbuffer_production, cfg=cfg))
         with timer.section("gbuffer"):
             gbuf = gb(self.accel, self.mesh, self.camera,
-                      shade_table=self.shade_table)
+                      shade_table=self.shade_table, rays=self.rays)
             jax.block_until_ready(gbuf["t"])
         gbuf.pop("trace_errors")
         sp = jax.jit(partial(shadow_production, cfg=cfg))

@@ -34,7 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from .morton import morton_of_points
-from .wide import WideBVH
+from .wide import WideBVH, stack_size_for
 
 _BIG = jnp.float32(3.4e38)
 
@@ -250,4 +250,5 @@ def _assemble_implicit(sv0, se1, se2, tri_id, k: int,
 
     return WideBVH(nodes=nodes, tris=tris, tri_id=tri_id,
                    root_min=scene_min, root_max=scene_max,
-                   num_wide=nw, leaf_size=k)
+                   num_wide=nw, leaf_size=k,
+                   stack_depth=stack_size_for(len(sizes)))

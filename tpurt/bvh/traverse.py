@@ -17,7 +17,8 @@ rays; closest-hit mode drives the G-buffer pass.
 The binary walk's stack of 128 is provably sufficient: the Karras delta
 strictly increases along any root->leaf path and is bounded by 60 code bits
 + 32 tiebreak bits (see tpurt/bvh/lbvh.py docstring). The wide walk's stack
-is checked instead: a walk that overflows it or passes its iteration cap is
+is sized from the tree when the accel is built (bvh/wide.size_stack) and
+checked besides: a walk that overflows it or passes its iteration cap is
 counted as an error, never returned as a silent miss.
 """
 
@@ -181,10 +182,10 @@ def _chunked_map(one, o, d, tm, chunk: int):
     return tuple(r.reshape(-1) for r in res)
 
 
-# Wide walk: per-ray stack capacity and the clamp that keeps slab products
-# NaN-free (0 * 3.4e38 = 0, where 0 * inf would be NaN). The CUDA kernel
-# uses the same clamp, so both resolve axis-parallel rays identically.
-WIDE_STACK_DEPTH = 64
+# Wide walk: the clamp that keeps slab products NaN-free (0 * 3.4e38 = 0,
+# where 0 * inf would be NaN). The CUDA kernel uses the same clamp, so both
+# resolve axis-parallel rays identically. The per-ray stack holds
+# ``wide.stack_depth`` entries, sized from the tree (bvh/wide.size_stack).
 _BIG = 3.4e38
 
 
@@ -204,6 +205,7 @@ def _wide_walk_one(wide, any_hit: bool, t_min, o, d, t_max):
     farthest-first, so the nearest pops next and ``best_t`` culls the rest.
     Returns (t, sorted triangle index, error flag)."""
     k = wide.leaf_size
+    depth = wide.stack_depth
     cap = wide_iteration_cap(wide.num_wide)
     inv = jnp.clip(1.0 / d, -_BIG, _BIG)
     slots = jnp.arange(8, dtype=jnp.int32)
@@ -235,12 +237,12 @@ def _wide_walk_one(wide, any_hit: bool, t_min, o, d, t_max):
         # Farthest first, misses last; push the hits on top of the stack.
         perm = jnp.argsort(jnp.where(hit, -enter, jnp.inf))
         nhit = jnp.sum(hit.astype(jnp.int32))
-        pos = jnp.where(slots < nhit, sp + slots, WIDE_STACK_DEPTH)
-        pos = jnp.where(pos < WIDE_STACK_DEPTH, pos, WIDE_STACK_DEPTH)
+        pos = jnp.where(slots < nhit, sp + slots, depth)
+        pos = jnp.where(pos < depth, pos, depth)
         stack = stack.at[pos].set(rec[perm, 6].astype(jnp.int32),
                                   mode="drop")
-        err = err | (sp + nhit > WIDE_STACK_DEPTH)
-        sp = jnp.minimum(sp + nhit, WIDE_STACK_DEPTH)
+        err = err | (sp + nhit > depth)
+        sp = jnp.minimum(sp + nhit, depth)
         return stack, sp, best_t, best_i, it + 1, err
 
     def cond(state):
@@ -255,7 +257,7 @@ def _wide_walk_one(wide, any_hit: bool, t_min, o, d, t_max):
     zf = o[0] * 0.0
     zi = zf.astype(jnp.int32)
     active = t_max > t_min
-    init = (jnp.zeros((WIDE_STACK_DEPTH,), jnp.int32) + zi,
+    init = (jnp.zeros((depth,), jnp.int32) + zi,
             active.astype(jnp.int32) + zi, t_max + zf, jnp.int32(-1) + zi,
             zi, zi > 0)
     _, sp, best_t, best_i, it, err = jax.lax.while_loop(cond, body, init)

@@ -10,8 +10,10 @@ All functions are jit-safe (pure jnp, static shapes).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
 
 from .types import Camera
@@ -66,6 +68,17 @@ def generate_rays(cam: Camera, width: int, height: int,
     directions = normalize(d)
     origins = jnp.broadcast_to(cam.position, (height, width, 3))
     return origins.astype(jnp.float32), directions.astype(jnp.float32)
+
+
+@partial(jax.jit, static_argnums=(1, 2))
+def camera_rays(cam: Camera, width: int, height: int
+                ) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """generate_rays at pixel centers as a program of its own. The Renderer
+    and the sharded frame (parallel/tiling.py) both take their primary rays
+    from it, so a camera gives bit-identical rays on any number of devices:
+    the same math compiled into two different programs may round
+    differently and flip pixels on triangle edges."""
+    return generate_rays(cam, width, height)
 
 
 def view_depth(cam: Camera, positions: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:

@@ -132,11 +132,6 @@ def main(argv=None) -> int:
     p.add_argument("--xprof", default=None, metavar="DIR",
                    help="write a kernel-level jax.profiler trace "
                         "(xprof/TensorBoard format) around the frame loop")
-    p.add_argument("--rebuild-collapse", choices=("fixed", "area"),
-                   default=RenderConfig.rebuild_collapse,
-                   help="rebuild mode: 8-wide collapse frontier — 'fixed' "
-                        "depth-3 cut or 'area' SAH-greedy "
-                        "(bvh/wide.frontiers_area)")
     p.add_argument("--rebuild-splits", type=int, default=-1,
                    help="rebuild mode: sub-leaf clustering — split the "
                         "top-M triangle blocks at their largest internal "
@@ -191,7 +186,6 @@ def main(argv=None) -> int:
                        accumulate=opts.get("accumulate", False),
                        leaf_size=leaf_size, seed=args.seed,
                        sah=not args.no_sah,
-                       rebuild_collapse=args.rebuild_collapse,
                        rebuild_splits=args.rebuild_splits)
 
     from .app import Renderer
@@ -227,22 +221,12 @@ def main(argv=None) -> int:
                     "tpurt/parallel/tiling.py)")
         import jax
 
-        from .parallel.tiling import (device_put_replicated, make_tile_mesh,
-                                      render_frame_sharded)
+        from .parallel.tiling import sharded_frames
         devs = jax.devices()
         if len(devs) < args.shard:
             p.error(f"--shard {args.shard} but only {len(devs)} devices "
                     f"visible ({devs[0].platform})")
-        dev_mesh = make_tile_mesh(devs[:args.shard])
-        accel_r = device_put_replicated(r.accel, dev_mesh)
-        mesh_r = device_put_replicated(r.mesh, dev_mesh)
-        st_r = device_put_replicated(r.shade_table, dev_mesh)
-
-        sharded = jax.jit(lambda a, m, k, t: render_frame_sharded(
-            a, m, cam, lights, k, cfg, mesh=dev_mesh, shade_table=t))
-
-        def shard_frame(key):
-            return sharded(accel_r, mesh_r, key, st_r)
+        shard_frame = sharded_frames(r, devs[:args.shard])
         print(f"sharding rows over {args.shard} devices "
               f"({devs[0].platform})", file=sys.stderr)
 

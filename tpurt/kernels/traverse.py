@@ -1,7 +1,8 @@
 """CUDA BVH traversal for the 8-wide accel, called through ``jax.ffi``.
 
 The kernel (native/traverse.cu) traces one ray per thread with a private
-stack, each warp covering a compact pixel tile, over the ``WideBVH`` rows
+stack of ``wide.stack_depth`` entries (sized from the tree when the accel
+is built), each warp covering a compact pixel tile, over the ``WideBVH`` rows
 (bvh/wide.py) left in device memory. Per-ray stack traversal is the SIMT
 workload a GPU is built for: XLA's vmapped ``while_loop``
 (bvh/traverse.traverse_wide, the plain twin of this kernel) runs every
@@ -102,7 +103,7 @@ def pack_rays(origins, dirs, t_max) -> jnp.ndarray:
 
 
 def _check_accel(wide) -> None:
-    from ..bvh.wide import WideBVH
+    from ..bvh.wide import STACK_SIZES, WideBVH
     if not isinstance(wide, WideBVH):
         raise TypeError(f"the CUDA kernel traces a WideBVH, got "
                         f"{type(wide).__name__} (binary accels take the "
@@ -110,6 +111,9 @@ def _check_accel(wide) -> None:
     if not 1 <= wide.leaf_size <= MAX_LEAF_SIZE:
         raise ValueError(f"leaf_size {wide.leaf_size} does not fit one "
                          f"128-float leaf row (max {MAX_LEAF_SIZE})")
+    if wide.stack_depth not in STACK_SIZES:
+        raise ValueError(f"stack_depth {wide.stack_depth} is not one of the "
+                         f"kernel's sizes {STACK_SIZES}")
 
 
 def _call(target, result_dtypes, wide, origins, dirs, t_max, t_min):
@@ -141,7 +145,8 @@ def _call(target, result_dtypes, wide, origins, dirs, t_max, t_min):
                t_min=np.float32(t_min), width=np.int32(width),
                height=np.int32(height), tile_w=np.int32(tile_w),
                leaf_size=np.int32(wide.leaf_size),
-               max_iters=np.int32(2 * wide.num_wide + 64))
+               max_iters=np.int32(2 * wide.num_wide + 64),
+               stack_depth=np.int32(wide.stack_depth))
     return [r.reshape(shape) for r in res[:-1]], res[-1]
 
 

@@ -223,12 +223,6 @@ class RenderConfig:
     # (bvh/wide.order_children_for_point). Renderer turns it off for
     # clustered rebuild mode, whose per-frame accel is rebuilt anyway.
     order_children: bool = True
-    # Rebuild-mode collapse frontier: "fixed" = depth-3 cut; "area" =
-    # SAH-greedy collapse (bvh/wide.frontiers_area), which needs the
-    # rebuild to materialize every binary node's boxes and runs a 64-sweep
-    # reachability pass. "fixed" gave the faster config-2 frame on an H100
-    # (Sponza-class 1080p: 17-23 ms vs 35-39 ms per frame, 700 W card).
-    rebuild_collapse: str = "fixed"
     # Rebuild-mode sub-leaf clustering: split the top-M triangle blocks at
     # their largest internal Morton jump into two tight-boxed tree-leaves
     # (bvh/lbvh._subleaf_split). 0 = off, -1 = auto
